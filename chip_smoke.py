@@ -4,17 +4,22 @@
 
 Phases (each fails loudly; the last stdout line is printed only when all
 passed):
-  1. build csrc/me_sad.cu with nvcc (sm_90a) and the native CABAC library;
+  1. build csrc/me_sad.cu with nvcc (sm_90a) and the port's native CABAC
+     library (g++);
   2. the coarse SAD sweep kernel against its plain PyTorch version on the
-     card, bit-exact, at the 720p slice shapes (m=8, R=16), at R=24 and at
-     a ragged grid; kernel and plain times from CUDA events;
-  3. port == golden numpy encoder on the card at 128x64 (I frame, and a P
-     frame from a fixed reference with deblocking off);
+     card, bit-exact, at the 720p slice shapes (m=8, R=16), at R=24, on
+     ragged grids, at m=16 and at the 0/255 extremes; kernel times from
+     CUDA events with the L2 cache warm and cold, plain times, and the
+     kernel's bound;
+  3. the port on the card against SHA-256 digests of the JAX package's
+     golden encoder at 128x64 (Annex-B bytes and recon planes of an I
+     frame with deblocking off and on, and of a P frame); the digests are
+     pinned to the JAX package by tests/test_torch_digests.py;
   4. the main path: homerhevc_tpu_torch.api.Encoder encodes 720p IPPP CU16
-     (1 I + 15 P), counting kernel launches and asserting no golden-path
-     frame and no jax; its first two frames are re-encoded on the CPU
-     (plain path) and must give identical Annex-B bytes; then a 720p
-     all-intra batch (gop 0, 4 frames in flight, 8 frames);
+     (1 I + 15 P), counting kernel launches; its first two frames are
+     re-encoded on the CPU (plain path) and must give identical Annex-B
+     bytes; then a 720p all-intra batch (gop 0, 4 frames in flight, 8
+     frames); neither jax nor homerhevc_tpu may be imported;
   5. where the time goes: one I and one P frame under torch.profiler.
 Then the kernel table (JSON), the card's name and power limit, and the
 result line.
@@ -22,10 +27,12 @@ result line.
 Exits non-zero without a result when no CUDA device is available.
 """
 
+import hashlib
 import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -34,6 +41,27 @@ DEV = "cuda"
 W, H = 1280, 720
 N_IPPP = 16          # 1 I + 15 P
 N_INTRA, F_INTRA = 8, 4
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
+INT32_LANES_PER_SM = 64       # Hopper SM: 64 INT32 lanes per clock
+OPS_PER_PACKED_LANE = 8       # vabsdiff4 .add: 4 pairs of |a - b| + add
+L2_FLUSH_BYTES = 256 << 20    # written between cold launches (L2: 50 MB)
+HOST_LEAD_CYCLES = 200_000_000  # ~0.1 s spin that lets the host queue ahead
+
+# 128x64 parity cells: the port on the card must reproduce these SHA-256
+# digests of the JAX package's golden encoder (Annex-B bytes, recon planes)
+PARITY_CFG = dict(width=128, height=64, qp=32, sao=False, sign_hiding=True,
+                  cu_size=16)
+GOLDEN_DIGESTS = {
+    "I deblock=0": (
+        "75cc9191de8a647a6a5b50d8b8a68a91c032bcd80b960d6c7e38399cab84f7fe",
+        "bde158720b373d8e87df0f3903393a4db6333c79a57affb224816c7dd558b736"),
+    "I deblock=1": (
+        "747a5f69464d9589cfd7df61a59b5934d0ff835f31def7a5b1a22c6d05e9a49c",
+        "ac46149178fb180e383bc8e47c0012f9a47ecc1b4a957bfb4e80b3fb1f7faa7e"),
+    "P": (
+        "02af27e2692a831f5165a0996b62b288697383ab32c88b3aedf52027ef31dd7c",
+        "8ad495b0e2b51e38493bc78e43e4ee7971f1a718067e8b9c00f5a8bae532fdd0"),
+}
 
 
 def log(msg):
@@ -44,6 +72,14 @@ def check(cond, msg=""):
     """Fail the phase (kept under python -O, unlike assert)."""
     if not cond:
         raise AssertionError(msg)
+
+
+def smi(query):
+    """One nvidia-smi --query-gpu field line of card 0."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip() \
+        .splitlines()[0]
 
 
 def bench_frames(n, seed=42):
@@ -65,11 +101,16 @@ def bench_frames(n, seed=42):
 
 
 def cuda_ms(fn, reps):
-    """Mean device time of fn() over reps launches (CUDA events)."""
-    fn()
+    """Mean device time of fn() over reps launches back to back (CUDA
+    events), after reps // 4 + 1 launches that bring the card to its
+    working clock. The card first spins while the host queues the launches,
+    so that a host slower than the kernel does not set the time."""
+    for _ in range(reps // 4 + 1):
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOST_LEAD_CYCLES)
     t0.record()
     for _ in range(reps):
         fn()
@@ -78,8 +119,26 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def cuda_ms_cold(fn, reps):
+    """Mean device time of fn() over reps launches, each timed alone (CUDA
+    events) after writing a buffer five times the L2 cache, so that none
+    of fn's data is cached: the sweep's caller runs thousands of other
+    kernels between two sweeps."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEV)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    fn()
+    for t0, t1 in events:
+        flush.zero_()
+        t0.record()
+        fn()
+        t1.record()
+    torch.cuda.synchronize()
+    return sum(t0.elapsed_time(t1) for t0, t1 in events) / reps
+
+
 def phase_build():
-    from homerhevc_tpu import native
+    from homerhevc_tpu_torch import native
     from homerhevc_tpu_torch.ops import me_sad
     t = time.perf_counter()
     me_sad.build()
@@ -93,9 +152,9 @@ def phase_build():
         f"native CABAC (g++): {t_n:.2f} s")
 
 
-def sweep_inputs(frames, R, gh=None, gw=None):
+def sweep_inputs(frames, R, m=8, gh=None, gw=None):
     """Decimated source / edge-padded decimated reference as the P path
-    builds them (int16 on the card)."""
+    builds them (uint8 on the card), cut to gh x gw blocks of m x m."""
     from homerhevc_tpu_torch.engine.inter_encoder import pad_edge
     dev = torch.device(DEV)
 
@@ -105,49 +164,128 @@ def sweep_inputs(frames, R, gh=None, gw=None):
                 + q[1::2, 1::2] + 2) >> 2
     sd = decim(frames[1][0])
     rd = decim(frames[0][0])
-    if gh is not None:
-        sd, rd = sd[:gh * 8, :gw * 8], rd[:gh * 8, :gw * 8]
-    rp = pad_edge(rd.to(torch.uint8), R, R).to(torch.int16).contiguous()
-    return sd.to(torch.int16).contiguous(), rp
+    gh = sd.shape[0] // m if gh is None else gh
+    gw = sd.shape[1] // m if gw is None else gw
+    sd, rd = sd[:gh * m, :gw * m], rd[:gh * m, :gw * m]
+    rp = pad_edge(rd.to(torch.uint8), R, R).contiguous()
+    return sd.to(torch.uint8).contiguous(), rp
+
+
+def sweep_bound(sd, rp, R, m):
+    """Least time (ms) of one sweep on this card and what bounds it: the
+    larger of the bytes time (each input byte read and each int32 output
+    written once at the HBM rate) and the operations time (2 operations,
+    |a - b| and the add, per 8-bit sample pair at the integer lanes' rate
+    for packed bytes: SMs x 64 lanes x the maximum SM clock x 8 operations
+    per vabsdiff4 .add). A SAD cannot use the tensor cores, so their int8
+    peak is no rate for it. Returns (bound, "bytes" or "operations",
+    operations time)."""
+    side = 2 * R + 1
+    nbytes = sd.numel() + rp.numel() + 4 * side * side * sd.numel() // (m * m)
+    ops = 2 * side * side * sd.numel()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / (sms * INT32_LANES_PER_SM * clock_hz
+                    * OPS_PER_PACKED_LANE) * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", ops_ms)
 
 
 def phase_kernel(frames):
+    from homerhevc_tpu_torch.device import LAUNCHES
     from homerhevc_tpu_torch.ops.me_sad import (coarse_sweep_sads,
                                                 coarse_sweep_sads_plain)
     rows = {}
-    for label, R, gh, gw in (("720p R=16", 16, None, None),
-                             ("720p R=24", 24, None, None),
-                             ("ragged 3x5 R=16", 16, 3, 5)):
-        sd, rp = sweep_inputs(frames, R, gh, gw)
-        got = coarse_sweep_sads(sd, rp, R, 8)
-        torch.cuda.synchronize()
-        want = coarse_sweep_sads_plain(sd, rp, R, 8)
+    before = LAUNCHES["coarse_sweep_sads"]
+    cases = [("720p R=16", 16, 8, None, None, True),
+             ("720p R=24", 24, 8, None, None, True),
+             ("ragged 3x5 R=16", 16, 8, 3, 5, False),
+             ("ragged 1x37 R=13", 13, 8, 1, 37, False),
+             ("m=16 22x40 R=24", 24, 16, None, None, False)]
+    for label, R, m, gh, gw, timed in cases:
+        sd, rp = sweep_inputs(frames, R, m, gh, gw)
         side = 2 * R + 1
-        check(got.shape == (side * side, sd.shape[0] // 8,
-                            sd.shape[1] // 8), got.shape)
+        got = coarse_sweep_sads(sd, rp, R, m)
+        torch.cuda.synchronize()
+        want = coarse_sweep_sads_plain(sd, rp, R, m)
+        check(got.shape == (side * side, sd.shape[0] // m,
+                            sd.shape[1] // m), got.shape)
         if not torch.equal(got, want):
             raise AssertionError(f"kernel != plain at {label}")
         err = int((got - want).abs().max())
-        ms = cuda_ms(lambda: coarse_sweep_sads(sd, rp, R, 8), 20)
-        plain_ms = cuda_ms(lambda: coarse_sweep_sads_plain(sd, rp, R, 8), 3)
-        rows[label] = (err, ms, plain_ms)
-        log(f"[kernel] {label}: sd {tuple(sd.shape)} ref_pad "
-            f"{tuple(rp.shape)} -> {tuple(got.shape)}; kernel == plain "
-            f"(bit-exact, max_abs_err {err}); kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
+        msg = (f"[kernel] {label}: sd {tuple(sd.shape)} ref_pad "
+               f"{tuple(rp.shape)} -> {tuple(got.shape)}; kernel == plain "
+               f"(bit-exact, max_abs_err {err})")
+        if timed:
+            def sweep():
+                return coarse_sweep_sads(sd, rp, R, m)
+            warm_ms = cuda_ms(sweep, 400)
+            ms = cuda_ms_cold(sweep, 200)
+            plain_ms = cuda_ms(
+                lambda: coarse_sweep_sads_plain(sd, rp, R, m), 3)
+            bound_ms, bound_by, ops_ms = sweep_bound(sd, rp, R, m)
+            rows[label] = (err, ms, plain_ms, bound_ms, bound_by)
+            msg += (f"; kernel {ms:.4f} ms with the L2 cold, "
+                    f"{warm_ms:.4f} ms warm; bound {bound_ms:.4f} ms "
+                    f"({bound_by}; operations {ops_ms:.4f} ms), "
+                    f"{100 * bound_ms / ms:.1f}% of the bound cold, "
+                    f"{100 * bound_ms / warm_ms:.1f}% warm; plain "
+                    f"{plain_ms:.4f} ms")
+        log(msg)
+    # the extremes: every |difference| is 0 or 255
+    sd, rp = sweep_inputs(frames, 16)
+    for s_val, r_val in ((0, 255), (255, 0), (255, 255)):
+        a = torch.full_like(sd, s_val)
+        b = torch.full_like(rp, r_val)
+        got = coarse_sweep_sads(a, b, 16, 8)
+        torch.cuda.synchronize()
+        check(torch.equal(got, coarse_sweep_sads_plain(a, b, 16, 8)),
+              f"kernel != plain at sd={s_val} ref={r_val}")
+        check(int(got.max()) == abs(s_val - r_val) * 64, int(got.max()))
+    log(f"[kernel] 720p R=16 extremes (sd, ref) = (0, 255), (255, 0), "
+        f"(255, 255): kernel == plain; launches in this phase "
+        f"{LAUNCHES['coarse_sweep_sads'] - before}")
     return rows
 
 
-def phase_golden_parity():
-    """Port on the card == golden numpy encoder at 128x64."""
-    from homerhevc_tpu.config import EncoderConfig
-    from homerhevc_tpu.golden.inter_frame import encode_inter_frame
-    from homerhevc_tpu.golden.intra_frame import encode_intra_frame
-    from homerhevc_tpu.hevc.headers import ParamSets
-    from homerhevc_tpu_torch.engine.inter_encoder import TorchInterEncoder
-    from homerhevc_tpu_torch.engine.intra_encoder import TorchIntraEncoder
-    from homerhevc_tpu_torch.state import reference_from_numpy
-    w, h = 128, 64
+def slice_annexb(hevc, ps, desc, slice_type, qp):
+    """Annex-B bytes of one slice (VPS/SPS/PPS ahead of an I slice; a P
+    slice refers to POC 0) coded by the Python CABAC serializer of `hevc`,
+    a namespace of the modules headers, bitstream, cabac, ctx_tables and
+    syntax: the port's on the card, the JAX package's in the digest test."""
+    h, bs = hevc.headers, hevc.bitstream
+    intra = slice_type == h.SLICE_I
+    nal_type = bs.NAL_IDR_W_RADL if intra else bs.NAL_TRAIL_R
+    sp = h.SliceParams(slice_type=slice_type, nal_type=nal_type,
+                       poc=0 if intra else 1, qp=qp,
+                       ref_pocs_before=() if intra else (0,))
+    bw = h.write_slice_header(ps, sp)
+    enc = hevc.cabac.CabacEncoder(
+        bw, hevc.ctx_tables.init_contexts("I" if intra else "P", qp))
+    sd = hevc.syntax.SliceDataEncoder(ps, desc, enc, slice_type, qp)
+    n_ctus = ps.ctus_x * ps.ctus_y
+    for i in range(n_ctus):
+        sd.encode_ctu(i % ps.ctus_x, i // ps.ctus_x)
+        sd.encode_ctu_end(end_of_slice=(i == n_ctus - 1))
+    enc.finish()
+    bw.write_byte_alignment()
+    nals = [h.write_vps(ps), h.write_sps(ps), h.write_pps(ps)] if intra \
+        else []
+    return bs.annex_b(nals + [bs.make_nal(nal_type, bw.get_bytes())])
+
+
+def digests(stream, planes):
+    """(SHA-256 of the Annex-B bytes, SHA-256 of the uint8 recon planes)."""
+    rec = b"".join(np.ascontiguousarray(np.asarray(p), np.uint8).tobytes()
+                   for p in planes)
+    return (hashlib.sha256(stream).hexdigest(),
+            hashlib.sha256(rec).hexdigest())
+
+
+def parity_inputs():
+    """The seeded 128x64 source frame and the P frame's fixed reference."""
+    w, h = PARITY_CFG["width"], PARITY_CFG["height"]
     rng = np.random.RandomState(1234)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     y = np.clip(60 + 0.1 * xx + 0.07 * yy + 25 * np.sin(xx / 11.0)
@@ -157,73 +295,47 @@ def phase_golden_parity():
                 + rng.rand(h // 2, w // 2) * 6, 0, 255).astype(np.uint8)
     v = np.clip(128 - 15 * np.cos(yy[::2, ::2] / 17.0)
                 + rng.rand(h // 2, w // 2) * 6, 0, 255).astype(np.uint8)
+    ref = (np.roll(y, 3, 1), np.roll(u, 1, 1), np.roll(v, 1, 1))
+    return (y, u, v), ref
+
+
+def port_digests(device):
+    """The port's digests of the parity cells, encoded on `device`."""
+    from homerhevc_tpu_torch.config import EncoderConfig
+    from homerhevc_tpu_torch.engine.inter_encoder import TorchInterEncoder
+    from homerhevc_tpu_torch.engine.intra_encoder import TorchIntraEncoder
+    from homerhevc_tpu_torch.hevc import (bitstream, cabac, ctx_tables,
+                                          headers, syntax)
+    from homerhevc_tpu_torch.state import reference_from_numpy
+    hevc = types.SimpleNamespace(headers=headers, bitstream=bitstream,
+                                 cabac=cabac, ctx_tables=ctx_tables,
+                                 syntax=syntax)
+    (y, u, v), ref = parity_inputs()
+    out = {}
     for deblock in (False, True):
-        cfg = EncoderConfig(width=w, height=h, qp=32, gop_size=0, sao=False,
-                            deblocking=deblock, sign_hiding=True, cu_size=16)
-        ps = ParamSets.from_config(cfg)
-        gd, gy, gu, gv = encode_intra_frame(ps, y, u, v, 32, cu_size=16)
-        if deblock:
-            from homerhevc_tpu.golden import deblock as gdb
-            tu8 = np.full((h // 8, w // 8), 16, np.int32)
-            qp8 = np.full_like(tu8, 32)
-            bs_v, bs_h = gdb.intra_bs_maps(tu8)
-            gy = gdb.deblock_plane_luma(gy, tu8, qp8, bs_v, bs_h)
-            gu = gdb.deblock_plane_chroma(gu, qp8, bs_v, bs_h,
-                                          ps.cb_qp_offset)
-            gv = gdb.deblock_plane_chroma(gv, qp8, bs_v, bs_h,
-                                          ps.cr_qp_offset)
-        dd, dy, du, dv = TorchIntraEncoder(ps, cfg, device=DEV) \
-            .encode_frame(y, u, v, 32)
-        dd.densify()
-        for f in ("luma_mode", "coef_y", "coef_u", "coef_v"):
-            check(np.array_equal(getattr(gd, f), getattr(dd, f)), f)
-        for a, b in ((gy, dy), (gu, du), (gv, dv)):
-            check(np.array_equal(np.asarray(a, np.uint8), np.asarray(b)))
-    cfg = EncoderConfig(width=w, height=h, qp=32, gop_size=1, intra_period=0,
-                        sao=False, deblocking=False, sign_hiding=True,
-                        cu_size=16)
-    ps = ParamSets.from_config(cfg)
-    ref = (np.roll(y, 3, 1).astype(np.int32), np.roll(u, 1, 1)
-           .astype(np.int32), np.roll(v, 1, 1).astype(np.int32))
-    gd, gy, gu, gv = encode_inter_frame(ps, (y, u, v), ref, 32,
-                                        merge_rd="fast")
-    dd, dy, du, dv = TorchInterEncoder(ps, cfg, device=DEV).encode_frame(
-        (y, u, v), reference_from_numpy(ref, DEV))
-    for f in ("mv", "coef_y", "coef_u", "coef_v", "skip", "merge_idx",
-              "mvp_flag"):
-        check(np.array_equal(getattr(gd, f), getattr(dd, f)), f)
-    for a, b in ((gy, dy), (gu, du), (gv, dv)):
-        check(np.array_equal(np.asarray(a, np.uint8), np.asarray(b)))
+        cfg = EncoderConfig(**PARITY_CFG, gop_size=0, deblocking=deblock)
+        ps = headers.ParamSets.from_config(cfg)
+        desc, *rec = TorchIntraEncoder(ps, cfg, device=device).encode_frame(
+            y, u, v, cfg.qp)
+        out[f"I deblock={int(deblock)}"] = digests(
+            slice_annexb(hevc, ps, desc, headers.SLICE_I, cfg.qp), rec)
+    cfg = EncoderConfig(**PARITY_CFG, gop_size=1, intra_period=0,
+                        deblocking=False)
+    ps = headers.ParamSets.from_config(cfg)
+    desc, *rec = TorchInterEncoder(ps, cfg, device=device).encode_frame(
+        (y, u, v), reference_from_numpy(ref, device))
+    out["P"] = digests(slice_annexb(hevc, ps, desc, headers.SLICE_P, cfg.qp),
+                       rec)
+    return out
+
+
+def phase_digests():
+    got = port_digests(DEV)
+    for k, want in GOLDEN_DIGESTS.items():
+        check(got[k] == want, f"{k}: port {got[k]} != golden {want}")
     log("[parity] 128x64 on the card: I frame (deblock off/on) and P frame "
-        "== golden numpy encoder (modes, MVs, levels, recon, skip, "
-        "merge_idx, mvp_flag)")
-
-
-class GoldenGuard:
-    """Counts entries into the pipeline's golden encode paths."""
-
-    def __init__(self):
-        import homerhevc_tpu.golden.inter_frame as gi
-        import homerhevc_tpu.golden.intra_frame as ga
-        self.hits = 0
-        self._saved = []
-        for mod, name in ((ga, "encode_intra_frame"),
-                          (gi, "encode_inter_frame"),
-                          (gi, "encode_inter_frame_tree"),
-                          (gi, "encode_b_frame_tree")):
-            self._saved.append((mod, name, getattr(mod, name)))
-
-    def __enter__(self):
-        for mod, name, fn in self._saved:
-            def wrapped(*a, _fn=fn, **k):
-                self.hits += 1
-                return _fn(*a, **k)
-            setattr(mod, name, wrapped)
-        return self
-
-    def __exit__(self, *exc):
-        for mod, name, fn in self._saved:
-            setattr(mod, name, fn)
+        "== the JAX golden encoder's SHA-256 digests (Annex-B bytes and "
+        "recon planes)")
 
 
 def encode_all(enc, frames):
@@ -234,9 +346,9 @@ def encode_all(enc, frames):
     return efs
 
 
-def check_frames(efs, frames, types):
-    from homerhevc_tpu.utils.metrics import psnr
-    check([e.frame_type for e in efs] == types, [e.frame_type for e in efs])
+def check_frames(efs, frames, types_):
+    from homerhevc_tpu_torch.utils.metrics import psnr
+    check([e.frame_type for e in efs] == types_, [e.frame_type for e in efs])
     ps = []
     for e, (y, u, v) in zip(efs, frames):
         r = e.recon
@@ -248,40 +360,36 @@ def check_frames(efs, frames, types):
 
 
 def phase_main_path(frames):
-    from homerhevc_tpu.config import EncoderConfig
-    from homerhevc_tpu.utils.profiler import PROFILER
     from homerhevc_tpu_torch.api import Encoder
+    from homerhevc_tpu_torch.config import EncoderConfig
     from homerhevc_tpu_torch.device import LAUNCHES, reset_launches
+    from homerhevc_tpu_torch.utils.profiler import PROFILER
     cfg = EncoderConfig(width=W, height=H, cu_size=16, gop_size=1, qp=32,
                         sign_hiding=True, deblocking=True, sao=False)
     # warm-up (CUDA context, cuBLAS handles, caches): 1 I + 2 P
-    encode_all(Encoder(cfg, device=DEV), frames[:3])
+    encode_all(Encoder(cfg), frames[:3])
     torch.cuda.synchronize()
-    enc = Encoder(cfg, device=DEV)
+    enc = Encoder(cfg)
     PROFILER.reset()
-    with GoldenGuard() as guard:
-        reset_launches()
-        t = time.perf_counter()
-        efs = encode_all(enc, frames[:N_IPPP])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        launches = dict(LAUNCHES)
+    reset_launches()
+    t = time.perf_counter()
+    efs = encode_all(enc, frames[:N_IPPP])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = dict(LAUNCHES)
     n_p = N_IPPP - 1
     check(len(efs) == N_IPPP, len(efs))
-    check(guard.hits == 0, f"{guard.hits} frames took the golden path")
     if launches["coarse_sweep_sads"] != n_p:
         raise AssertionError(f"coarse sweep launched "
                              f"{launches['coarse_sweep_sads']} times for "
                              f"{n_p} P frames")
-    check("jax" not in sys.modules, "jax was imported")
     mean_psnr = check_frames(efs, frames, ["I"] + ["P"] * n_p)
     bits = [e.bits for e in efs]
     log(f"[main] 720p IPPP CU16 qp32 deblock: {N_IPPP} frames (1 I + {n_p} "
         f"P) in {dt:.3f} s = {N_IPPP / dt:.3f} fps; bits/frame "
         f"{np.mean(bits):.0f} (I {bits[0]}, P mean "
         f"{np.mean(bits[1:]):.0f}); luma PSNR {mean_psnr:.2f} dB; "
-        f"coarse sweep launches {launches['coarse_sweep_sads']}; golden-path "
-        f"frames 0; jax not loaded")
+        f"coarse sweep launches {launches['coarse_sweep_sads']}")
     log("[main] host scopes:\n" + PROFILER.report())
     # the same two frames through the plain CPU path: identical stream
     t = time.perf_counter()
@@ -295,20 +403,18 @@ def phase_main_path(frames):
     cfg0 = EncoderConfig(width=W, height=H, cu_size=16, gop_size=0, qp=32,
                          sign_hiding=True, deblocking=False, sao=False,
                          num_frames_in_flight=F_INTRA)
-    encode_all(Encoder(cfg0, device=DEV), frames[:F_INTRA])  # warm-up
-    enc0 = Encoder(cfg0, device=DEV)
-    with GoldenGuard() as guard:
-        t = time.perf_counter()
-        efs0 = encode_all(enc0, frames[:N_INTRA])
-        torch.cuda.synchronize()
-        dt0 = time.perf_counter() - t
-    check(guard.hits == 0, f"{guard.hits} frames took the golden path")
+    encode_all(Encoder(cfg0), frames[:F_INTRA])  # warm-up
+    enc0 = Encoder(cfg0)
+    t = time.perf_counter()
+    efs0 = encode_all(enc0, frames[:N_INTRA])
+    torch.cuda.synchronize()
+    dt0 = time.perf_counter() - t
     mean0 = check_frames(efs0, frames, ["I"] * N_INTRA)
     log(f"[main] 720p all-intra CU16 qp32 (bench.py config, "
         f"{F_INTRA} frames in flight): {N_INTRA} frames in {dt0:.3f} s = "
         f"{N_INTRA / dt0:.3f} fps; bits/frame "
         f"{np.mean([e.bits for e in efs0]):.0f}; luma PSNR {mean0:.2f} dB")
-    return launches, N_IPPP / dt, N_INTRA / dt0
+    return launches
 
 
 def phase_profile(frames):
@@ -316,10 +422,10 @@ def phase_profile(frames):
     launches and device time against wall time (the profiler's own cost
     inflates the wall time; phase 4 has the unprofiled times)."""
     from torch.profiler import ProfilerActivity, profile
-    from homerhevc_tpu.config import EncoderConfig
-    from homerhevc_tpu.hevc.headers import ParamSets
+    from homerhevc_tpu_torch.config import EncoderConfig
     from homerhevc_tpu_torch.engine.inter_encoder import TorchInterEncoder
     from homerhevc_tpu_torch.engine.intra_encoder import TorchIntraEncoder
+    from homerhevc_tpu_torch.hevc.headers import ParamSets
     from homerhevc_tpu_torch.state import reference_from_numpy
     cfg = EncoderConfig(width=W, height=H, cu_size=16, gop_size=1, qp=32,
                         sign_hiding=True, deblocking=True, sao=False)
@@ -360,25 +466,26 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(2)
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
-        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}; "
+        f"{smi('name,power.limit,clocks.max.sm')}")
     frames = bench_frames(N_IPPP)
     phase_build()
     rows = phase_kernel(frames)
-    phase_golden_parity()
-    launches, fps_p, fps_i = phase_main_path(frames)
+    phase_digests()
+    launches = phase_main_path(frames)
     phase_profile(frames)
-    err, ms, plain_ms = rows["720p R=16"]
+    for name in ("jax", "homerhevc_tpu"):
+        check(name not in sys.modules, f"{name} was imported")
+    log("[isolation] neither jax nor homerhevc_tpu was imported")
+    err, ms, plain_ms, bound_ms, bound_by = rows["720p R=16"]
     print(json.dumps({"kernels": [{
         "name": "coarse_sweep_sads", "route": "cuda",
         "source": "homerhevc_tpu_torch/csrc/me_sad.cu",
         "replaces": "homerhevc_tpu/ops/pallas/me_sad.py:35",
         "launches": launches["coarse_sweep_sads"], "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms}]}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None}]}), flush=True)
+    print(smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

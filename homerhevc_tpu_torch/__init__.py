@@ -2,16 +2,19 @@
 
 The device tier of the JAX package (ops/, engine/intra_encoder.py,
 engine/inter_encoder.py) is re-implemented here in PyTorch, module for
-module, so a reader finds each counterpart by path. The framework-free
-host tiers (config, hevc/*, golden/*, native/*, engine/rate_control.py,
-engine/pipeline.py, utils/{metrics,profiler}.py, api.EncodedFrame) are
-imported from homerhevc_tpu as they are.
+module, so a reader finds each counterpart by path. The package owns its
+host tier too: config.py, hevc/*, native/* (the C++ CABAC, built with g++
+into _build/ at first use), engine/rate_control.py, utils/* and
+engine/pipeline.py are copies of the JAX package's modules at the same
+paths, and hevc/{intra_pred,inter_syntax}.py hold what the device path
+needs from its golden/ oracle. There is no golden encode path: a
+configuration the port does not cover raises NotImplementedError.
 
 The coarse motion-search SAD sweep, the one Pallas kernel of the JAX
 package, is a hand-written CUDA kernel (csrc/me_sad.cu) built with nvcc at
 first use; on a CPU tensor its wrapper runs the plain PyTorch version.
 
-This package imports torch and never jax.
+This package imports torch, never jax, and nothing of homerhevc_tpu.
 """
 
 __version__ = "0.1.0"

@@ -1,31 +1,84 @@
-"""Public encoder API of the port: homerhevc_tpu.api.Encoder with the
-torch pipeline on a named device.
+"""Public encoder API of the port (written from homerhevc_tpu/api.py):
 
-    enc = Encoder(cfg, device="cuda")
-    for ef in enc.encode(y, u, v): ...     # EncodedFrame (host tier)
+    enc = Encoder(cfg)                       # on the card; device="cpu" asks
+    for ef in enc.encode(y, u, v): ...       # for the plain CPU path
     for ef in enc.flush(): ...
     stream = b"".join(ef.annex_b() for ef in frames)
+
+A configuration the port does not cover yet raises NotImplementedError
+when the Encoder is built (engine/pipeline.py unported).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator, Optional
 
-from homerhevc_tpu.api import EncodedFrame  # noqa: F401  (re-export)
-from homerhevc_tpu.api import Encoder as _Encoder
-from homerhevc_tpu.config import EncoderConfig
+import numpy as np
+
+from homerhevc_tpu_torch.config import EncoderConfig
 from homerhevc_tpu_torch.device import resolve_device
 from homerhevc_tpu_torch.engine.pipeline import TorchPipeline
+from homerhevc_tpu_torch.hevc.bitstream import annex_b
 
 
-class Encoder(_Encoder):
-    """Session object owning config, GOP state, reference pool and the
-    torch device pipeline. The device is always named by the caller."""
+class EncodedFrame:
+    """Output unit: NAL payloads + reconstruction (analog of output_set_t).
 
-    def __init__(self, cfg: EncoderConfig, device):
+    `recon` may be passed as a zero-arg callable; it is then materialized
+    on first access, so reconstruction planes stay on the device unless a
+    consumer (recon dump, PSNR, tests) reads them."""
+
+    def __init__(self, poc: int, frame_type: str, nals: list[bytes],
+                 recon=None, avg_qp: float = 0.0):
+        self.poc = poc
+        self.frame_type = frame_type
+        self.nals = nals
+        self._recon = recon  # {'y','u','v'} uint8 planes, or thunk
+        self.avg_qp = avg_qp
+
+    @property
+    def recon(self) -> Optional[dict]:
+        if callable(self._recon):
+            self._recon = self._recon()
+        return self._recon
+
+    @property
+    def bits(self) -> int:
+        return sum(len(n) + 4 for n in self.nals) * 8
+
+    def annex_b(self) -> bytes:
+        return annex_b(self.nals)
+
+
+class Encoder:
+    """Session object owning config, GOP state and the torch device
+    pipeline. The device defaults to the card ("cuda"); pass device="cpu"
+    for the plain CPU path."""
+
+    # config fields whose change keeps the device encoder objects (QP and
+    # the source planes are per-call inputs; these live in host GOP/RC
+    # logic only)
+    _SOFT_FIELDS = frozenset({
+        "qp", "bitrate_kbps", "bitrate_mode", "frame_rate", "vbv_size",
+        "vbv_init", "intra_period", "gop_size", "num_b", "b_qp_offset",
+        "reinit_gop_on_scene_change",
+    })
+
+    def __init__(self, cfg: EncoderConfig, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self._pipeline = TorchPipeline(cfg, self.device)
+
+    def encode(self, y: np.ndarray, u: np.ndarray,
+               v: np.ndarray) -> Iterator[EncodedFrame]:
+        """Submit one YUV420 8-bit frame; yields finished frames (possibly
+        none yet while the pipeline fills)."""
+        yield from self._pipeline.push(y, u, v)
+
+    def flush(self) -> Iterator[EncodedFrame]:
+        """Drain the pipeline."""
+        yield from self._pipeline.flush()
 
     def reconfigure(self, **changes) -> list[EncodedFrame]:
         """Drain the in-flight GOP, then restart the pipeline with the
@@ -36,10 +89,10 @@ class Encoder(_Encoder):
         if unknown:
             raise ValueError(f"unknown config fields: {unknown}")
         old = self._pipeline
-        self.cfg = dataclasses.replace(self.cfg, **changes)
-        self._pipeline = TorchPipeline(self.cfg, self.device)
+        cfg = dataclasses.replace(self.cfg, **changes)
+        self._pipeline = TorchPipeline(cfg, self.device)
+        self.cfg = cfg
         if all(k in self._SOFT_FIELDS for k in changes):
-            for k in ("_tpu_intra", "_tpu_inter"):
-                if getattr(old, k, None) is not None:
-                    setattr(self._pipeline, k, getattr(old, k))
+            self._pipeline._intra_enc = old._intra_enc
+            self._pipeline._inter_enc = old._inter_enc
         return drained

@@ -1,7 +1,8 @@
 """Device resolution, numeric pins and kernel launch counters.
 
-The caller always names the device: there is no "cuda if present, else
-cpu" default on the main path. Importing this module pins TF32 off for
+The port's entry points run on the card unless the caller asks for the
+CPU: there is no "cuda if present, else cpu" fallback, and asking for
+"cuda" without a card raises. Importing this module pins TF32 off for
 both cuBLAS matmuls and cuDNN: the intra predictor's float32 contraction
 (ops/intra.py predict_all_modes) is exact only in full fp32.
 """

@@ -12,9 +12,9 @@ Bit-exact to the JAX program and to golden encode_inter_frame
 The coarse sweep runs the hand-written CUDA kernel on a CUDA device
 (ops/me_sad.py); there is no gate at the call site.
 
-Not ported here (the pipeline sends such configs to the golden path): the
-CU32/CU64 tree, the FAR level (me_range > 32), intra-in-P, device SAO,
-per-CTB QP maps and the bi-predicted program.
+Not ported yet (the pipeline refuses such configs, engine/pipeline.py
+unported): the CU32/CU64 tree, the FAR level (me_range > 32), intra-in-P,
+device SAO, per-CTB QP maps and the bi-predicted program.
 """
 
 from __future__ import annotations
@@ -22,14 +22,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from homerhevc_tpu.config import EncoderConfig
-from homerhevc_tpu.golden.inter_frame import (MERGE_FAST_BITS_BASE,
-                                              select_inter_syntax,
-                                              zf_multiplier)
-from homerhevc_tpu.hevc import tables as T
-from homerhevc_tpu.hevc.headers import ParamSets
-from homerhevc_tpu.hevc.syntax import MODE_INTER, FrameDesc
-from homerhevc_tpu.utils.profiler import PROFILER
+from homerhevc_tpu_torch.config import EncoderConfig
+from homerhevc_tpu_torch.hevc import tables as T
+from homerhevc_tpu_torch.hevc.headers import ParamSets
+from homerhevc_tpu_torch.hevc.inter_syntax import (MERGE_FAST_BITS_BASE,
+                                                   select_inter_syntax,
+                                                   zf_multiplier)
+from homerhevc_tpu_torch.hevc.syntax import MODE_INTER, FrameDesc
+from homerhevc_tpu_torch.utils.profiler import PROFILER
 from homerhevc_tpu_torch.device import resolve_device
 from homerhevc_tpu_torch.engine.intra_encoder import (DevicePlane, _sh1,
                                                       _u8, _parse_cg_wire,
@@ -133,12 +133,11 @@ class TorchInterEncoder:
                     + q[0::2, 1::2] + q[1::2, 1::2] + 2) >> 2
 
         m = cu // 2
-        sd16 = decim(sy).to(torch.int16).contiguous()     # (gh*m, gw*m)
+        sd8 = decim(sy).to(torch.uint8).contiguous()      # (gh*m, gw*m)
         rd = decim(ry)
-        pad_c = pad_edge(rd.to(torch.uint8), R, R)
+        pad_c = pad_edge(rd.to(torch.uint8), R, R).contiguous()
         # coarse sweep: the hand-written kernel on CUDA (plain on CPU)
-        sads = coarse_sweep_sads(sd16, pad_c.to(torch.int16).contiguous(),
-                                 R, m)
+        sads = coarse_sweep_sads(sd8, pad_c, R, m)
         n_off = side * side
         ks = torch.arange(n_off, dtype=torch.int32, device=dev)
 
@@ -489,14 +488,10 @@ class TorchInterEncoder:
 
     # ---- host driver ---------------------------------------------------
 
-    def dispatch(self, src, ref, avg_dist: float = 1000.0, qp=None,
-                 qp_map=None):
+    def dispatch(self, src, ref, avg_dist: float = 1000.0, qp=None):
         """Launch the device program; returns the device output tuple
         without any device->host copy. self.last_dev holds the
         (device-resident) post-deblock recon for chaining the next frame."""
-        if qp_map is not None:
-            raise NotImplementedError(
-                "per-CTB QP maps are not ported to the torch P program")
         qp = self.cfg.qp if qp is None else int(qp)
         zf = torch.tensor(zf_multiplier(avg_dist, qp), dtype=torch.float32,
                           device=self.device)
@@ -506,12 +501,9 @@ class TorchInterEncoder:
         self.last_dev = (out[0], out[1], out[2])
         return out
 
-    def fetch(self, out, is_b: bool = False, bi: bool = False,
-              ref_dists=(1, 2), qp_map=None):
+    def fetch(self, out):
         """Download one dispatched frame's wire buffer and build the
         FrameDesc (host half of encode_frame); recon stays on the device."""
-        if bi or qp_map is not None:
-            raise NotImplementedError("bi / QP-map P frames are not ported")
         recon_y, recon_u, recon_v, ly, lu, lv, meta = out
         meta_np = meta.cpu().numpy()
         gh, gw = self.gh, self.gw
@@ -539,12 +531,9 @@ class TorchInterEncoder:
         desc.coef_v = np.ascontiguousarray(pv, np.int16)
         desc.row_ssd_y = row_ssd     # exact luma SSD per row vs source
         desc.sao_params = None
-        select_inter_syntax(self.ps, desc, cu, is_b=is_b)
+        select_inter_syntax(self.ps, desc, cu)
         return (desc, DevicePlane(recon_y), DevicePlane(recon_u),
                 DevicePlane(recon_v))
 
-    def encode_frame(self, src, ref, is_b: bool = False,
-                     avg_dist: float = 1000.0, qp=None, qp_map=None):
-        return self.fetch(self.dispatch(src, ref, avg_dist, qp=qp,
-                                        qp_map=qp_map),
-                          is_b=is_b, qp_map=qp_map)
+    def encode_frame(self, src, ref, avg_dist: float = 1000.0, qp=None):
+        return self.fetch(self.dispatch(src, ref, avg_dist, qp=qp))

@@ -10,8 +10,8 @@ neighbour access is a shifted slice. Decisions, levels and recon are
 bit-exact to the JAX encoder and the golden numpy encoder.
 
 The numpy wire helpers (_split_planes, _parse_cg_wire, _unpack_cg_frame,
-_wire_frame) are copies of the JAX module's, which this package cannot
-import without importing jax.
+_wire_frame) are copies of the JAX module's: this package imports nothing
+of homerhevc_tpu.
 """
 
 from __future__ import annotations
@@ -19,10 +19,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from homerhevc_tpu.config import EncoderConfig
-from homerhevc_tpu.hevc.headers import ParamSets
-from homerhevc_tpu.hevc.syntax import FrameDesc
-from homerhevc_tpu.utils.profiler import PROFILER
+from homerhevc_tpu_torch.config import EncoderConfig
+from homerhevc_tpu_torch.hevc.headers import ParamSets
+from homerhevc_tpu_torch.hevc.syntax import FrameDesc
+from homerhevc_tpu_torch.utils.profiler import PROFILER
 from homerhevc_tpu_torch.device import resolve_device
 from homerhevc_tpu_torch.ops import intra as dip
 from homerhevc_tpu_torch.ops.deblock import (deblock_chroma_uniform,
@@ -91,7 +91,7 @@ def _unpack_cg_frame(wire, i: int, n_tot: int, shapes, full_fallback):
     cnt, ec, cc = int(counts[i]), int(esc_counts[i]), int(cg_counts[i])
     if cnt > pack_C or ec > E or cc > cg_C:
         return full_fallback()
-    from homerhevc_tpu.native import unpack_sparse_cg_native
+    from homerhevc_tpu_torch.native import unpack_sparse_cg_native
     buf = np.empty(n_tot, np.int16)
     if unpack_sparse_cg_native(cg_bitmaps[i], masks[i], codes[i], cnt, cc,
                                esc_idx[i, :ec], esc_val[i, :ec], n_tot,
@@ -116,7 +116,7 @@ def _wire_frame(wire, i: int, shapes):
 class DevicePlane:
     """Lazy host view of a device-resident plane (frame i of a batched
     tensor, or a whole 2D tensor when i is None). numpy consumers
-    (np.asarray in the pipeline and the golden paths) copy it to the host
+    (np.asarray in the pipeline and the tests) copy it to the host
     on demand; the port's own dispatch takes `.tensor` without a host
     round trip."""
 
@@ -386,19 +386,17 @@ class TorchIntraEncoder:
             desc.coef_v = np.ascontiguousarray(lv, np.int16)
         return desc
 
-    def encode_frame(self, y, u, v, qp: int, qp_map=None):
-        return self.encode_frames([y], [u], [v], qps=[qp],
-                                  qp_maps=None if qp_map is None
-                                  else [qp_map])[0]
+    def encode_frame(self, y, u, v, qp: int):
+        return self.encode_frames([y], [u], [v], qps=[qp])[0]
 
-    def dispatch_frames(self, ys, us, vs, qps=None, qp_maps=None):
+    def dispatch_frames(self, ys, us, vs, qps=None):
         """Launch the batched frame program; returns device tensors (CUDA
         work is asynchronous). Pair with fetch_frames."""
         if qps is None:
             qps = [self.cfg.qp] * len(ys)
         handle = ys if isinstance(ys, torch.Tensor) \
             else self.pack_upload(list(zip(ys, us, vs)))
-        return self.dispatch_packed(handle, qps, qp_maps=qp_maps)
+        return self.dispatch_packed(handle, qps)
 
     def pack_upload(self, frames):
         """Pack a batch into one (F, w*h*3/2) uint8 buffer on the device."""
@@ -411,10 +409,7 @@ class TorchIntraEncoder:
             packed[i, wh + wh // 4:] = np.asarray(v, np.uint8).reshape(-1)
         return torch.from_numpy(packed).to(self.device)
 
-    def dispatch_packed(self, handle, qps, qp_maps=None):
-        if qp_maps is not None:
-            raise NotImplementedError(
-                "per-CTB QP maps (AQ) are not ported to the torch encoder")
+    def dispatch_packed(self, handle, qps):
         wh = self.w * self.h
         with PROFILER.scope("disp_run"):
             y = handle[:, :wh].reshape(-1, self.h, self.w)
@@ -426,7 +421,7 @@ class TorchIntraEncoder:
                                  device=self.device)
             return self._encode_frames_impl(y, u, v, qp)
 
-    def fetch_frames(self, out, n_frames: int, qp_maps=None):
+    def fetch_frames(self, out, n_frames: int):
         """Download the compact wire buffer and rebuild FrameDescs;
         reconstruction planes stay device-resident (DevicePlane)."""
         ry, ru, rv, ly, lu, lv, meta = out
@@ -456,11 +451,10 @@ class TorchIntraEncoder:
                                 DevicePlane(ru, i), DevicePlane(rv, i)))
         return results
 
-    def encode_frames(self, ys, us, vs, qps=None, qp_maps=None):
+    def encode_frames(self, ys, us, vs, qps=None):
         """Batched: lists of F frames -> list of (desc, ry, ru, rv)."""
-        return self.fetch_frames(
-            self.dispatch_frames(ys, us, vs, qps=qps, qp_maps=qp_maps),
-            len(ys), qp_maps=qp_maps)
+        return self.fetch_frames(self.dispatch_frames(ys, us, vs, qps=qps),
+                                 len(ys))
 
 
 def _u8(a: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,24 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from homerhevc_tpu.golden.interp import CHROMA_FILT, LUMA_FILT
+# luma 8-tap (quarter-pel) — spec Table 8-10
+LUMA_FILT = {
+    0: (0, 0, 0, 64, 0, 0, 0, 0),
+    1: (-1, 4, -10, 58, 17, -5, 1, 0),
+    2: (-1, 4, -11, 40, 40, -11, 4, -1),
+    3: (0, 1, -5, 17, 58, -10, 4, -1),
+}
+# chroma 4-tap (eighth-pel) — spec Table 8-32
+CHROMA_FILT = {
+    0: (0, 64, 0, 0),
+    1: (-2, 58, 10, -2),
+    2: (-4, 54, 16, -2),
+    3: (-6, 46, 28, -4),
+    4: (-4, 36, 36, -4),
+    5: (-4, 28, 46, -6),
+    6: (-2, 16, 54, -4),
+    7: (-2, 10, 58, -2),
+}
 
 LUMA_TAPS = np.asarray([LUMA_FILT[f] for f in range(4)], np.int32)     # (4,8)
 CHROMA_TAPS = np.asarray([CHROMA_FILT[f] for f in range(8)], np.int32)  # (8,4)

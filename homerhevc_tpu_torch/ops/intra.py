@@ -14,8 +14,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from homerhevc_tpu.golden.intra_pred import INV_ANGLE, PRED_ANGLE
 from homerhevc_tpu_torch import device as _device  # noqa: F401  (TF32 off)
+from homerhevc_tpu_torch.hevc.intra_pred import (INV_ANGLE, PRED_ANGLE,
+                                                 _zorder_table)
 
 # modes that use the filtered reference per size (HM m_aucIntraFilter rule)
 _FILTER_THRESH = {4: 10, 8: 7, 16: 1, 32: 0}
@@ -166,7 +167,6 @@ def avail_masks(w: int, h: int, ctu: int, n: int, comp_shift: int,
     component-space top-left corners are xs0/ys0 (broadcastable arrays).
     Coordinates are in component space; availability is evaluated in luma
     space (<< comp_shift). Returns bool array xs0.shape + (4n+1,)."""
-    from homerhevc_tpu.golden.intra_pred import _zorder_table
     cs = comp_shift
     n2 = 2 * n
     offx = np.concatenate([np.full(n2, -1), [-1], np.arange(n2)])

@@ -3,9 +3,11 @@
 between them by the tensors' device.
 
 Port of homerhevc_tpu/ops/pallas/me_sad.py (coarse_sweep_sads and its
-oracle coarse_sweep_sads_ref). The wrapper never probes and never falls
-back: a CPU tensor runs the plain version, a CUDA tensor launches the
-kernel or raises.
+oracle coarse_sweep_sads_ref). The samples are 8-bit: both call sites
+sweep uint8 planes (a decimated mean and its edge padding), so the port
+takes uint8 tensors where the JAX function takes int16 ones. The wrapper
+never probes and never falls back: a CPU tensor runs the plain version, a
+CUDA tensor launches the kernel or raises.
 
 The kernel is compiled with nvcc for sm_90a into _build/ at first use and
 loaded with ctypes (a plain C entry point; no PyTorch headers).
@@ -40,34 +42,49 @@ def _nvcc() -> str:
     return path
 
 
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3"]
+
+
+def compile_library(path: str, extra_flags=(), src: str = _SRC
+                    ) -> ctypes.CDLL:
+    """nvcc `src` (csrc/me_sad.cu or a variant of it) into the shared
+    library `path` and load it with its entry point typed."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    subprocess.run([_nvcc(), *NVCC_FLAGS, *extra_flags, "-shared",
+                    "-Xcompiler", "-fPIC", "-o", tmp, src], check=True)
+    os.replace(tmp, path)
+    lib = ctypes.CDLL(path)
+    lib.coarse_sweep_sads_launch.restype = ctypes.c_int
+    lib.coarse_sweep_sads_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    return lib
+
+
 def build() -> str:
-    """Compile csrc/me_sad.cu into _build/libme_sad.so (when missing or
-    older than the source) and load it. Returns the library path."""
+    """Compile csrc/me_sad.cu into _build/libme_sad.so and load it, once
+    per process. Returns the library path."""
     global _lib
     with _lock:
-        if _lib is not None:
-            return _SO
-        if (not os.path.exists(_SO)
-                or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-            os.makedirs(_BUILD, exist_ok=True)
-            tmp = f"{_SO}.{os.getpid()}.tmp"
-            subprocess.run(
-                [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                 "-o", tmp, _SRC],
-                check=True)
-            os.replace(tmp, _SO)
-        lib = ctypes.CDLL(_SO)
-        lib.coarse_sweep_sads_launch.restype = ctypes.c_int
-        lib.coarse_sweep_sads_launch.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        _lib = lib
+        if _lib is None:
+            _lib = compile_library(_SO)
         return _SO
 
 
-def _tile(m: int) -> int:
-    """Block columns per CUDA block: a 64-sample-wide source tile."""
-    return max(1, 64 // m)
+def launch(lib, sd: torch.Tensor, ref_pad: torch.Tensor, out: torch.Tensor,
+           R: int, m: int) -> None:
+    """Launch `lib`'s sweep on the current stream of the tensors' card;
+    raises if the launch is refused."""
+    gh, gw = sd.shape[0] // m, sd.shape[1] // m
+    with torch.cuda.device(sd.device):
+        stream = torch.cuda.current_stream(sd.device).cuda_stream
+        err = lib.coarse_sweep_sads_launch(
+            sd.data_ptr(), ref_pad.data_ptr(), out.data_ptr(), gh, gw, m, R,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"coarse_sweep_sads launch failed: CUDA error "
+                           f"{err}")
 
 
 def coarse_sweep_sads_plain(sd: torch.Tensor, ref_pad: torch.Tensor,
@@ -92,8 +109,8 @@ def _check(sd: torch.Tensor, ref_pad: torch.Tensor, R: int, m: int):
     if m < 1 or R < 1:
         raise ValueError(f"need m >= 1 and R >= 1, got m={m} R={R}")
     for name, t in (("sd", sd), ("ref_pad", ref_pad)):
-        if t.dtype != torch.int16:
-            raise TypeError(f"{name} must be int16, got {t.dtype}")
+        if t.dtype != torch.uint8:
+            raise TypeError(f"{name} must be uint8, got {t.dtype}")
         if t.ndim != 2:
             raise ValueError(f"{name} must be 2D, got shape {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -114,26 +131,24 @@ def coarse_sweep_sads(sd: torch.Tensor, ref_pad: torch.Tensor, R: int,
     """(side^2, gh, gw) int32 block SADs of the decimated source vs every
     (dy, dx) in [-R, R]^2 of the edge-padded decimated reference.
 
-    sd:      (gh*m, gw*m) int16 decimated source, contiguous
-    ref_pad: (gh*m + 2R, gw*m + 2R) int16 reference, edge-padded by R
+    sd:      (gh*m, gw*m) uint8 decimated source, contiguous
+    ref_pad: (gh*m + 2R, gw*m + 2R) uint8 reference, edge-padded by R
+
+    The CUDA kernel takes m a multiple of 8 (m = cu/2 of the CU16 and CU32
+    grids) and R <= 255; the plain CPU version takes any m >= 1, R >= 1.
     """
     _check(sd, ref_pad, R, m)
     if sd.device.type == "cpu":
         return coarse_sweep_sads_plain(sd, ref_pad, R, m)
     if sd.device.type != "cuda":
         raise ValueError(f"unsupported device {sd.device}")
+    if m % 8 or R > 255:
+        raise ValueError(f"the CUDA sweep takes m a multiple of 8 and "
+                         f"R <= 255, got m={m} R={R}")
     build()
-    gh, gw = sd.shape[0] // m, sd.shape[1] // m
     side = 2 * R + 1
-    out = torch.empty((side * side, gh, gw), dtype=torch.int32,
-                      device=sd.device)
-    with torch.cuda.device(sd.device):
-        stream = torch.cuda.current_stream(sd.device).cuda_stream
-        err = _lib.coarse_sweep_sads_launch(
-            sd.data_ptr(), ref_pad.data_ptr(), out.data_ptr(),
-            gh, gw, m, R, _tile(m), stream)
-    if err != 0:
-        raise RuntimeError(f"coarse_sweep_sads launch failed: CUDA error "
-                           f"{err}")
+    out = torch.empty((side * side, sd.shape[0] // m, sd.shape[1] // m),
+                      dtype=torch.int32, device=sd.device)
+    launch(_lib, sd, ref_pad, out, R, m)
     LAUNCHES["coarse_sweep_sads"] += 1
     return out

@@ -14,7 +14,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from homerhevc_tpu.hevc import tables as T
+from homerhevc_tpu_torch.hevc import tables as T
 
 
 def quant_params(size: int, qp: int, is_intra: bool, scaling_lists: bool):

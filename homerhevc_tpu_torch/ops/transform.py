@@ -14,7 +14,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from homerhevc_tpu.hevc.tables import DCT, DST4
+from homerhevc_tpu_torch.hevc.tables import DCT, DST4
 
 
 @lru_cache(maxsize=None)

@@ -13,10 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from homerhevc_tpu.config import EncoderConfig
-from homerhevc_tpu.golden.intra_pred import Availability
-from homerhevc_tpu.hevc import tables as T
-from homerhevc_tpu.hevc.headers import ParamSets
+from homerhevc_tpu_torch.config import EncoderConfig
+from homerhevc_tpu_torch.hevc import tables as T
+from homerhevc_tpu_torch.hevc.headers import ParamSets
+from homerhevc_tpu_torch.hevc.intra_pred import Availability
 from homerhevc_tpu_torch.ops import intra as dip
 from homerhevc_tpu_torch.ops import quant as dq
 from homerhevc_tpu_torch.ops import transform as dt

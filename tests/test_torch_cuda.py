@@ -11,11 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from homerhevc_tpu.config import EncoderConfig
-from homerhevc_tpu.hevc.headers import ParamSets
+from homerhevc_tpu_torch.config import EncoderConfig
 from homerhevc_tpu_torch.device import LAUNCHES
 from homerhevc_tpu_torch.engine.inter_encoder import TorchInterEncoder
 from homerhevc_tpu_torch.engine.intra_encoder import TorchIntraEncoder
+from homerhevc_tpu_torch.hevc.headers import ParamSets
 from homerhevc_tpu_torch.ops import me_sad
 from homerhevc_tpu_torch.state import reference_from_numpy
 
@@ -31,17 +31,20 @@ def card():
 
 def _sweep_inputs(seed, gh, gw, R, m, device):
     rng = np.random.RandomState(seed)
-    sd = rng.randint(0, 256, (gh * m, gw * m)).astype(np.int16)
+    sd = rng.randint(0, 256, (gh * m, gw * m)).astype(np.uint8)
     rp = np.pad(rng.randint(0, 256, (gh * m, gw * m)), R, mode="edge")
     return (torch.from_numpy(sd).to(device),
-            torch.from_numpy(rp.astype(np.int16)).to(device))
+            torch.from_numpy(rp.astype(np.uint8)).to(device))
 
 
-# 720p slice shapes (R=16 IPPP, R=24 IBP), ragged grids, an odd block size
-# and a radius whose band needs more than 48 KB of shared memory
+# 720p slice shapes (R=16 IPPP, R=24 IBP), ragged grids, a large radius,
+# and the tiling's edges: gw past one 16-column tile and ragged, gh = 1,
+# R not a multiple of the 8-dx run, m = 16 with R = 24, m = 32
 @pytest.mark.parametrize("gh,gw,R,m", [(45, 80, 16, 8), (45, 80, 24, 8),
-                                       (3, 5, 16, 8), (3, 5, 3, 5),
-                                       (4, 9, 48, 8), (2, 3, 24, 16)])
+                                       (3, 5, 16, 8), (4, 9, 48, 8),
+                                       (2, 3, 24, 16), (2, 21, 4, 8),
+                                       (1, 5, 8, 8), (2, 3, 13, 8),
+                                       (22, 40, 24, 16), (2, 3, 5, 32)])
 def test_kernel_matches_plain(card, gh, gw, R, m):
     sd, rp = _sweep_inputs(gh * gw + R, gh, gw, R, m, card)
     before = LAUNCHES["coarse_sweep_sads"]
@@ -52,6 +55,18 @@ def test_kernel_matches_plain(card, gh, gw, R, m):
     assert torch.equal(got, me_sad.coarse_sweep_sads_plain(sd, rp, R, m))
 
 
+@pytest.mark.parametrize("s_val,r_val", [(0, 255), (255, 0), (255, 255)])
+def test_kernel_extremes_match_plain(card, s_val, r_val):
+    gh, gw, R, m = 45, 80, 16, 8
+    sd = torch.full((gh * m, gw * m), s_val, dtype=torch.uint8, device=card)
+    rp = torch.full((gh * m + 2 * R, gw * m + 2 * R), r_val,
+                    dtype=torch.uint8, device=card)
+    got = me_sad.coarse_sweep_sads(sd, rp, R, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, me_sad.coarse_sweep_sads_plain(sd, rp, R, m))
+    assert int(got.max()) == abs(s_val - r_val) * m * m
+
+
 def test_wrapper_rejects_bad_cuda_inputs(card):
     sd, rp = _sweep_inputs(1, 2, 2, 4, 8, card)
     with pytest.raises(TypeError):
@@ -60,6 +75,10 @@ def test_wrapper_rejects_bad_cuda_inputs(card):
         me_sad.coarse_sweep_sads(sd.t(), rp, 4, 8)
     with pytest.raises(ValueError):
         me_sad.coarse_sweep_sads(sd, rp.cpu(), 4, 8)
+    # the kernel takes m a multiple of 8 (the plain CPU version any m)
+    sd5, rp5 = _sweep_inputs(2, 3, 5, 3, 5, card)
+    with pytest.raises(ValueError):
+        me_sad.coarse_sweep_sads(sd5, rp5, 3, 5)
 
 
 def _frame(rng, w, h):

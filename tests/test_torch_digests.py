@@ -1,0 +1,61 @@
+"""Pins chip_smoke.py's parity digests to the JAX package: the seeded
+128x64 I frame (deblocking off and on) and P frame, encoded by
+homerhevc_tpu.golden and serialized by homerhevc_tpu.hevc, hash to
+GOLDEN_DIGESTS; the port's CPU path hashes to the same. On the card,
+chip_smoke.py holds the port's CUDA path to these constants."""
+
+import types
+
+import numpy as np
+
+import chip_smoke
+from homerhevc_tpu.config import EncoderConfig
+from homerhevc_tpu.golden import deblock as gdb
+from homerhevc_tpu.golden.inter_frame import encode_inter_frame
+from homerhevc_tpu.golden.intra_frame import encode_intra_frame
+from homerhevc_tpu.hevc import bitstream, cabac, ctx_tables, headers, syntax
+
+_HEVC = types.SimpleNamespace(headers=headers, bitstream=bitstream,
+                              cabac=cabac, ctx_tables=ctx_tables,
+                              syntax=syntax)
+
+
+def golden_digests():
+    (y, u, v), ref = chip_smoke.parity_inputs()
+    out = {}
+    for deblock in (False, True):
+        cfg = EncoderConfig(**chip_smoke.PARITY_CFG, gop_size=0,
+                            deblocking=deblock)
+        ps = headers.ParamSets.from_config(cfg)
+        desc, ry, ru, rv = encode_intra_frame(ps, y, u, v, cfg.qp,
+                                              cu_size=16)
+        if deblock:
+            tu8 = np.full((cfg.height // 8, cfg.width // 8), 16, np.int32)
+            qp8 = np.full_like(tu8, cfg.qp)
+            bs_v, bs_h = gdb.intra_bs_maps(tu8)
+            ry = gdb.deblock_plane_luma(ry, tu8, qp8, bs_v, bs_h)
+            ru = gdb.deblock_plane_chroma(ru, qp8, bs_v, bs_h,
+                                          ps.cb_qp_offset)
+            rv = gdb.deblock_plane_chroma(rv, qp8, bs_v, bs_h,
+                                          ps.cr_qp_offset)
+        out[f"I deblock={int(deblock)}"] = chip_smoke.digests(
+            chip_smoke.slice_annexb(_HEVC, ps, desc, headers.SLICE_I,
+                                    cfg.qp), (ry, ru, rv))
+    cfg = EncoderConfig(**chip_smoke.PARITY_CFG, gop_size=1, intra_period=0,
+                        deblocking=False)
+    ps = headers.ParamSets.from_config(cfg)
+    ref32 = tuple(p.astype(np.int32) for p in ref)
+    desc, ry, ru, rv = encode_inter_frame(ps, (y, u, v), ref32, cfg.qp,
+                                          merge_rd="fast")
+    out["P"] = chip_smoke.digests(
+        chip_smoke.slice_annexb(_HEVC, ps, desc, headers.SLICE_P, cfg.qp),
+        (ry, ru, rv))
+    return out
+
+
+def test_chip_smoke_digests_are_the_golden_encoders():
+    assert golden_digests() == chip_smoke.GOLDEN_DIGESTS
+
+
+def test_port_cpu_path_gives_the_golden_digests():
+    assert chip_smoke.port_digests("cpu") == chip_smoke.GOLDEN_DIGESTS

@@ -1,6 +1,7 @@
 """The port end to end on the CPU: homerhevc_tpu_torch.api.Encoder gives
 Annex-B bytes identical to homerhevc_tpu.api.Encoder, the stream decodes
-in FFmpeg to the port's own luma recon, and the port runs without jax."""
+in FFmpeg to the port's own luma recon, and the port runs without jax and
+without the JAX package."""
 
 import os
 import subprocess
@@ -10,8 +11,9 @@ import numpy as np
 import pytest
 
 from homerhevc_tpu.api import Encoder as JaxEncoder
-from homerhevc_tpu.config import EncoderConfig
+from homerhevc_tpu.config import EncoderConfig as JaxConfig
 from homerhevc_tpu_torch.api import Encoder as TorchEncoder
+from homerhevc_tpu_torch.config import EncoderConfig
 from tests.conftest import decode_annexb, make_yuv
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -39,12 +41,12 @@ def _encode(enc, frames):
 def test_torch_stream_matches_jax_and_decodes(gop, batch, tmp_path):
     """gop 1: the 4-frame IPPP CU16 slice; gop 0: batched all-intra."""
     w, h = 128, 64
-    cfg = EncoderConfig(width=w, height=h, cu_size=16, gop_size=gop, qp=32,
-                        sign_hiding=True, deblocking=True, sao=False,
-                        num_frames_in_flight=batch)
+    kw = dict(width=w, height=h, cu_size=16, gop_size=gop, qp=32,
+              sign_hiding=True, deblocking=True, sao=False,
+              num_frames_in_flight=batch)
     frames = _frames(np.random.RandomState(13), w, h, 4)
-    want = _encode(JaxEncoder(cfg), frames)
-    got = _encode(TorchEncoder(cfg, device="cpu"), frames)
+    want = _encode(JaxEncoder(JaxConfig(**kw)), frames)
+    got = _encode(TorchEncoder(EncoderConfig(**kw), device="cpu"), frames)
     assert [e.frame_type for e in got] == \
         (["I", "P", "P", "P"] if gop else ["I"] * 4)
     stream = b"".join(e.annex_b() for e in got)
@@ -65,10 +67,10 @@ def test_reconfigure_keeps_torch_pipeline():
     enc = TorchEncoder(cfg, device="cpu")
     frames = _frames(np.random.RandomState(14), w, h, 3)
     efs = list(enc.encode(*frames[0])) + list(enc.encode(*frames[1]))
-    intra = enc._pipeline._tpu_intra
+    intra = enc._pipeline._intra_enc
     efs += enc.reconfigure(qp=36)            # drains, keeps the encoders
     assert isinstance(enc._pipeline, TorchPipeline)
-    assert enc._pipeline._tpu_intra is intra
+    assert enc._pipeline._intra_enc is intra
     efs += list(enc.encode(*frames[2])) + list(enc.flush())
     assert [e.frame_type for e in efs] == ["I", "P", "I"]
     assert efs[-1].avg_qp == 36
@@ -77,7 +79,7 @@ def test_reconfigure_keeps_torch_pipeline():
 def test_port_runs_without_jax():
     code = (
         "import sys, numpy as np\n"
-        "from homerhevc_tpu.config import EncoderConfig\n"
+        "from homerhevc_tpu_torch.config import EncoderConfig\n"
         "from homerhevc_tpu_torch.api import Encoder\n"
         "cfg = EncoderConfig(width=64, height=32, cu_size=16, gop_size=1,\n"
         "                    qp=32, sao=False)\n"
@@ -90,9 +92,28 @@ def test_port_runs_without_jax():
         "efs += list(enc.flush())\n"
         "assert [e.frame_type for e in efs] == ['I', 'P']\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert 'homerhevc_tpu' not in sys.modules, 'homerhevc_tpu'\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=_ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().endswith("ok")
+
+
+def test_torch_idr_and_scene_cut_match_jax():
+    """Scene-change IDRs (a hard cut into frame 2 and back out of it at
+    frame 3) break and restart the port's device reference chain exactly
+    as in the JAX pipeline: identical frame types and Annex-B bytes."""
+    w, h = 128, 64
+    kw = dict(width=w, height=h, cu_size=16, gop_size=1, qp=32,
+              intra_period=0, sign_hiding=True, deblocking=True, sao=False)
+    frames = _frames(np.random.RandomState(15), w, h, 4)
+    y, u, v = frames[2]
+    frames[2] = (255 - y, v, u)
+    want = _encode(JaxEncoder(JaxConfig(**kw)), frames)
+    got = _encode(TorchEncoder(EncoderConfig(**kw), device="cpu"), frames)
+    assert [e.frame_type for e in got] == ["I", "P", "I", "I"]
+    assert [e.frame_type for e in want] == [e.frame_type for e in got]
+    assert b"".join(e.annex_b() for e in got) == \
+        b"".join(e.annex_b() for e in want)

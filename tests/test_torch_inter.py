@@ -2,13 +2,17 @@
 TpuInterEncoder at 128x64 from the same reference picture, bit-exact in
 every field tests/test_tpu_inter.py compares."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
-from homerhevc_tpu.config import EncoderConfig
+from homerhevc_tpu.config import EncoderConfig as JaxConfig
 from homerhevc_tpu.engine.inter_encoder import TpuInterEncoder
-from homerhevc_tpu.hevc.headers import ParamSets
+from homerhevc_tpu.hevc.headers import ParamSets as JaxParamSets
+from homerhevc_tpu_torch.config import EncoderConfig
 from homerhevc_tpu_torch.engine.inter_encoder import TorchInterEncoder
+from homerhevc_tpu_torch.hevc.headers import ParamSets
 from homerhevc_tpu_torch.state import reference_from_numpy
 from tests.conftest import make_yuv
 
@@ -17,9 +21,10 @@ _FIELDS = ("mv", "coef_y", "coef_u", "coef_v", "skip", "inter_mode",
 
 
 def _compare(cfg, src, ref):
-    ps = ParamSets.from_config(cfg)
-    jd, jy, ju, jv = TpuInterEncoder(ps, cfg).encode_frame(src, ref)
-    enc = TorchInterEncoder(ps, cfg, device="cpu")
+    jcfg = JaxConfig(**dataclasses.asdict(cfg))
+    jd, jy, ju, jv = TpuInterEncoder(JaxParamSets.from_config(jcfg),
+                                     jcfg).encode_frame(src, ref)
+    enc = TorchInterEncoder(ParamSets.from_config(cfg), cfg, device="cpu")
     td, ty, tu, tv = enc.encode_frame(src, reference_from_numpy(ref, "cpu"))
     for f in _FIELDS:
         assert np.array_equal(getattr(jd, f), getattr(td, f)), f

@@ -4,10 +4,12 @@ the JAX TpuIntraEncoder at 128x64: modes, levels and recon bit-exact."""
 import numpy as np
 import pytest
 
-from homerhevc_tpu.config import EncoderConfig
+from homerhevc_tpu.config import EncoderConfig as JaxConfig
 from homerhevc_tpu.engine.intra_encoder import TpuIntraEncoder
-from homerhevc_tpu.hevc.headers import ParamSets
+from homerhevc_tpu.hevc.headers import ParamSets as JaxParamSets
+from homerhevc_tpu_torch.config import EncoderConfig
 from homerhevc_tpu_torch.engine.intra_encoder import TorchIntraEncoder
+from homerhevc_tpu_torch.hevc.headers import ParamSets
 from tests.conftest import make_yuv
 
 
@@ -15,15 +17,16 @@ from tests.conftest import make_yuv
 def test_torch_intra_matches_jax(deblock):
     rng = np.random.RandomState(11)    # own stream, not the session rng
     w, h = 128, 64
-    cfg = EncoderConfig(width=w, height=h, qp=30, gop_size=0, sao=False,
-                        deblocking=deblock, sign_hiding=True, cu_size=16)
-    ps = ParamSets.from_config(cfg)
+    kw = dict(width=w, height=h, qp=30, gop_size=0, sao=False,
+              deblocking=deblock, sign_hiding=True, cu_size=16)
+    jcfg, cfg = JaxConfig(**kw), EncoderConfig(**kw)
     frames = [make_yuv(rng, w, h) for _ in range(2)]
     ys, us, vs = (list(x) for x in zip(*frames))
     qps = [30, 34]           # per-frame QPs in one batch
-    want = TpuIntraEncoder(ps, cfg).encode_frames(ys, us, vs, qps=qps)
-    got = TorchIntraEncoder(ps, cfg, device="cpu").encode_frames(
-        ys, us, vs, qps=qps)
+    want = TpuIntraEncoder(JaxParamSets.from_config(jcfg), jcfg) \
+        .encode_frames(ys, us, vs, qps=qps)
+    got = TorchIntraEncoder(ParamSets.from_config(cfg), cfg,
+                            device="cpu").encode_frames(ys, us, vs, qps=qps)
     for (jd, jy, ju, jv), (td, ty, tu, tv) in zip(want, got):
         jd.densify()
         td.densify()

@@ -241,10 +241,15 @@ def test_interp():
 
 def test_tables_match_jax_modules():
     from homerhevc_tpu.engine import intra_encoder as jie
+    from homerhevc_tpu_torch.config import EncoderConfig as TorchConfig
+    from homerhevc_tpu_torch.hevc.headers import ParamSets as TorchParamSets
     from homerhevc_tpu_torch.state import tables_to_torch
-    cfg = EncoderConfig(width=96, height=64, cu_size=16, qp=30, gop_size=1)
+    kw = dict(width=96, height=64, cu_size=16, qp=30, gop_size=1)
+    cfg = EncoderConfig(**kw)
     ps = ParamSets.from_config(cfg)
-    tab = tables_to_torch(ps, cfg, torch.device("cpu"))
+    tcfg = TorchConfig(**kw)
+    tab = tables_to_torch(TorchParamSets.from_config(tcfg), tcfg,
+                          torch.device("cpu"))
     for n in (4, 8, 16, 32):
         assert np.array_equal(tab[f"dct{n}"].numpy(), T.DCT[n])
     assert np.array_equal(tab["dst4"].numpy(), T.DST4)
