@@ -13,16 +13,27 @@ passed):
      kernel's bound;
   3. the port on the card against SHA-256 digests of the JAX package's
      golden encoder at 128x64 (Annex-B bytes and recon planes of an I
-     frame with deblocking off and on, and of a P frame); the digests are
-     pinned to the JAX package by tests/test_torch_digests.py;
-  4. the main path: homerhevc_tpu_torch.api.Encoder encodes 720p IPPP CU16
-     (1 I + 15 P), counting kernel launches; its first two frames are
-     re-encoded on the CPU (plain path) and must give identical Annex-B
-     bytes; then a 720p all-intra batch (gop 0, 4 frames in flight, 8
-     frames); neither jax nor homerhevc_tpu may be imported;
-  5. where the time goes: one I and one P frame under torch.profiler.
-Then the kernel table (JSON), the card's name and power limit, and the
-result line.
+     frame with deblocking off and on, of a P frame, and of intra CU-tree
+     frames at CTU 32 and 64 with deblocking and at CTU 32 with deblocking
+     and SAO); the digests are pinned to the JAX package by
+     tests/test_torch_digests.py;
+  4. the main paths through homerhevc_tpu_torch.api.Encoder, each with the
+     kernel launch counts set to 0 just before and read just after it:
+     720p IPPP CU16 (1 I + 15 P; its first two frames re-encoded on the
+     CPU, plain path, give identical Annex-B bytes) and a 720p all-intra
+     CU16 batch (slice 1); 1080p all-intra CU32 and CU64 with intra_rdo,
+     deblocking and SAO, 4 frames in flight (frame 0 of CU32 re-encoded
+     alone on the CPU gives identical bytes); 720p IPPP CU16 with SAO
+     (1 I + 7 P, the sweep launched once per P frame, the first two
+     frames equal on the CPU) (slice 2); neither jax nor homerhevc_tpu
+     may be imported;
+  5. where the time goes: one I and one P frame of slice 1 and a P frame
+     with SAO under torch.profiler; one 1080p tree frame split by stage
+     (decide, wavefront, deblock, SAO, pack), timed and its aten ops
+     counted, then torch.profiler over the decision pass and the first 8
+     wavefront steps.
+Then the kernel table (JSON; launches are those of the two IPPP runs of
+phase 4), the card's name and power limit, and the result line.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -41,6 +52,10 @@ DEV = "cuda"
 W, H = 1280, 720
 N_IPPP = 16          # 1 I + 15 P
 N_INTRA, F_INTRA = 8, 4
+W_TREE, H_TREE = 1920, 1080   # path A: all-intra CU tree at 1080p
+F_TREE = 4                    # frames in flight, one batch
+N_SAO = 8                     # path B: 720p IPPP CU16 + SAO, 1 I + 7 P
+PROFILE_STEPS = 8             # wavefront steps under torch.profiler
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64       # Hopper SM: 64 INT32 lanes per clock
 OPS_PER_PACKED_LANE = 8       # vabsdiff4 .add: 4 pairs of |a - b| + add
@@ -51,6 +66,12 @@ HOST_LEAD_CYCLES = 200_000_000  # ~0.1 s spin that lets the host queue ahead
 # digests of the JAX package's golden encoder (Annex-B bytes, recon planes)
 PARITY_CFG = dict(width=128, height=64, qp=32, sao=False, sign_hiding=True,
                   cu_size=16)
+# the intra CU-tree cells (gop 0, intra_rdo, deblocking; SAO off or on)
+TREE_CFG = dict(width=128, height=64, qp=32, gop_size=0, intra_rdo=True,
+                deblocking=True, sign_hiding=True)
+TREE_CELLS = {"I tree CU32 deblock": dict(cu_size=32, sao=False),
+              "I tree CU64 deblock": dict(cu_size=64, sao=False),
+              "I tree CU32 deblock+SAO": dict(cu_size=32, sao=True)}
 GOLDEN_DIGESTS = {
     "I deblock=0": (
         "75cc9191de8a647a6a5b50d8b8a68a91c032bcd80b960d6c7e38399cab84f7fe",
@@ -61,6 +82,15 @@ GOLDEN_DIGESTS = {
     "P": (
         "02af27e2692a831f5165a0996b62b288697383ab32c88b3aedf52027ef31dd7c",
         "8ad495b0e2b51e38493bc78e43e4ee7971f1a718067e8b9c00f5a8bae532fdd0"),
+    "I tree CU32 deblock": (
+        "538a0cbc3db768111b5c10fe30d198d8f20e3bdd749fcbd80ebb6aad1d888fa3",
+        "6632cb4ad47e565e6e0bb4b2d02c5e46cd55b9ffbe0a951feea51c444af3ce68"),
+    "I tree CU64 deblock": (
+        "e39f888f3b28d874d0c111cd14709902129d2f8087cf436633a7733e70fbfaa0",
+        "6632cb4ad47e565e6e0bb4b2d02c5e46cd55b9ffbe0a951feea51c444af3ce68"),
+    "I tree CU32 deblock+SAO": (
+        "71b7dff370e5cdc4fa047202e332a05d8f7002a0b8982b6a56373e202908167c",
+        "fceb07e9e880bed6bcba5c029401dbdabfc17d3ff3e1fc92d054de38a9c349cc"),
 }
 
 
@@ -82,11 +112,12 @@ def smi(query):
         .splitlines()[0]
 
 
-def bench_frames(n, seed=42):
-    """The bench.py clip: moving texture over gradients (720p)."""
+def bench_frames(n, seed=42, w=W, h=H):
+    """The bench.py clip: moving texture over gradients (720p unless
+    another size is asked for)."""
     rng = np.random.RandomState(seed)
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
-    tex = (rng.rand(H, W) * 40).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    tex = (rng.rand(h, w) * 40).astype(np.float32)
     out = []
     for t in range(n):
         y = np.clip(60 + 0.08 * xx + 0.05 * yy
@@ -249,21 +280,25 @@ def phase_kernel(frames):
     return rows
 
 
-def slice_annexb(hevc, ps, desc, slice_type, qp):
+def slice_annexb(hevc, ps, desc, slice_type, qp, sao_params=None):
     """Annex-B bytes of one slice (VPS/SPS/PPS ahead of an I slice; a P
     slice refers to POC 0) coded by the Python CABAC serializer of `hevc`,
     a namespace of the modules headers, bitstream, cabac, ctx_tables and
-    syntax: the port's on the card, the JAX package's in the digest test."""
+    syntax: the port's on the card, the JAX package's in the digest test.
+    With sao_params the slice header turns SAO on and every CTU codes its
+    parameters."""
     h, bs = hevc.headers, hevc.bitstream
     intra = slice_type == h.SLICE_I
     nal_type = bs.NAL_IDR_W_RADL if intra else bs.NAL_TRAIL_R
+    sao = sao_params is not None
     sp = h.SliceParams(slice_type=slice_type, nal_type=nal_type,
-                       poc=0 if intra else 1, qp=qp,
-                       ref_pocs_before=() if intra else (0,))
+                       poc=0 if intra else 1, qp=qp, sao_luma=sao,
+                       sao_chroma=sao, ref_pocs_before=() if intra else (0,))
     bw = h.write_slice_header(ps, sp)
     enc = hevc.cabac.CabacEncoder(
         bw, hevc.ctx_tables.init_contexts("I" if intra else "P", qp))
-    sd = hevc.syntax.SliceDataEncoder(ps, desc, enc, slice_type, qp)
+    sd = hevc.syntax.SliceDataEncoder(ps, desc, enc, slice_type, qp,
+                                      sao_params=sao_params)
     n_ctus = ps.ctus_x * ps.ctus_y
     for i in range(n_ctus):
         sd.encode_ctu(i % ps.ctus_x, i // ps.ctus_x)
@@ -299,6 +334,25 @@ def parity_inputs():
     return (y, u, v), ref
 
 
+def tree_parity_inputs():
+    """The seeded 128x64 frame of the tree cells: a flat gradient half and
+    a rings half (large and split CUs both occur), light luma noise and
+    textured chroma (SAO turns on in some CTBs)."""
+    w, h = TREE_CFG["width"], TREE_CFG["height"]
+    rng = np.random.RandomState(7)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    r = np.sqrt((xx - w * 0.75) ** 2 + (yy - h * 0.5) ** 2)
+    y = np.where(xx < w // 2, 90 + 0.3 * yy, 60 + 60 * np.sin(r * 0.8))
+    y = np.clip(y + rng.randint(-1, 2, (h, w)), 0, 255).astype(np.uint8)
+    u = np.clip(120 + 10 * np.sin(xx[::2, ::2] / 9.0)
+                + rng.randint(-4, 5, (h // 2, w // 2)), 0, 255) \
+        .astype(np.uint8)
+    v = np.clip(130 + 10 * np.cos(yy[::2, ::2] / 7.0)
+                + rng.randint(-4, 5, (h // 2, w // 2)), 0, 255) \
+        .astype(np.uint8)
+    return y, u, v
+
+
 def port_digests(device):
     """The port's digests of the parity cells, encoded on `device`."""
     from homerhevc_tpu_torch.config import EncoderConfig
@@ -326,6 +380,16 @@ def port_digests(device):
         (y, u, v), reference_from_numpy(ref, device))
     out["P"] = digests(slice_annexb(hevc, ps, desc, headers.SLICE_P, cfg.qp),
                        rec)
+    from homerhevc_tpu_torch.engine.intra_tree_encoder import \
+        TorchIntraTreeEncoder
+    y, u, v = tree_parity_inputs()
+    for name, cell in TREE_CELLS.items():
+        cfg = EncoderConfig(**TREE_CFG, **cell)
+        ps = headers.ParamSets.from_config(cfg)
+        desc, *rec = TorchIntraTreeEncoder(ps, cfg, device=device) \
+            .encode_frame(y, u, v, cfg.qp)
+        out[name] = digests(slice_annexb(hevc, ps, desc, headers.SLICE_I,
+                                         cfg.qp, desc.sao_params), rec)
     return out
 
 
@@ -333,9 +397,9 @@ def phase_digests():
     got = port_digests(DEV)
     for k, want in GOLDEN_DIGESTS.items():
         check(got[k] == want, f"{k}: port {got[k]} != golden {want}")
-    log("[parity] 128x64 on the card: I frame (deblock off/on) and P frame "
-        "== the JAX golden encoder's SHA-256 digests (Annex-B bytes and "
-        "recon planes)")
+    log("[parity] 128x64 on the card: I frame (deblock off/on), P frame and "
+        "intra tree (CU32 / CU64 deblock, CU32 deblock+SAO) == the JAX "
+        "golden encoder's SHA-256 digests (Annex-B bytes and recon planes)")
 
 
 def encode_all(enc, frames):
@@ -352,8 +416,9 @@ def check_frames(efs, frames, types_):
     ps = []
     for e, (y, u, v) in zip(efs, frames):
         r = e.recon
-        check(r["y"].shape == (H, W) and r["y"].dtype == np.uint8)
-        check(r["u"].shape == (H // 2, W // 2))
+        check(r["y"].shape == y.shape and r["y"].dtype == np.uint8)
+        check(r["u"].shape == u.shape)
+        check(np.isfinite(r["y"].astype(np.float64)).all())
         ps.append(psnr(r["y"], y))
     check(min(ps) > 25.0, ps)  # sanity floor at qp32 on this clip
     return float(np.mean(ps))
@@ -417,11 +482,214 @@ def phase_main_path(frames):
     return launches
 
 
-def phase_profile(frames):
-    """One I and one P frame of the slice under torch.profiler: kernel
-    launches and device time against wall time (the profiler's own cost
-    inflates the wall time; phase 4 has the unprofiled times)."""
+def tree_config(w, h, cu, frames_in_flight=F_TREE):
+    """Path A: all-intra CU tree, fast decision, fixed QP 32, sign hiding,
+    deblocking and SAO."""
+    from homerhevc_tpu_torch.config import EncoderConfig
+    return EncoderConfig(width=w, height=h, cu_size=cu, gop_size=0, qp=32,
+                         intra_rdo=True, sign_hiding=True, deblocking=True,
+                         sao=True, num_frames_in_flight=frames_in_flight)
+
+
+def sao_share(params):
+    """(share of CTBs with SAO on in luma or chroma, frames with any)."""
+    on = [(p.type_luma != 0) | (p.type_chroma != 0) for p in params]
+    return (float(np.mean([o.mean() for o in on])),
+            sum(bool(o.any()) for o in on))
+
+
+def phase_tree_path(frames):
+    """Path A on the card: 1080p all-intra CU32 and CU64 with intra_rdo,
+    deblocking and SAO, one batch of F_TREE frames each (after a 256x128
+    warm-up of the same configuration); frame 0 of CU32 re-encoded alone
+    on the CPU must give the same Annex-B bytes."""
+    from homerhevc_tpu_torch.api import Encoder
+    from homerhevc_tpu_torch.device import LAUNCHES, reset_launches
+    small = bench_frames(F_TREE, w=256, h=128)
+    first = None
+    for cu in (32, 64):
+        encode_all(Encoder(tree_config(256, 128, cu)), small)   # warm-up
+        torch.cuda.synchronize()
+        enc = Encoder(tree_config(W_TREE, H_TREE, cu))
+        params = []
+        emit = enc._pipeline._emit
+
+        def spy(desc, *a, **k):
+            params.append(desc.sao_params)
+            return emit(desc, *a, **k)
+        enc._pipeline._emit = spy
+        reset_launches()
+        t = time.perf_counter()
+        efs = encode_all(enc, frames)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        check(all(v == 0 for v in LAUNCHES.values()), dict(LAUNCHES))
+        mean_psnr = check_frames(efs, frames, ["I"] * F_TREE)
+        share, n_on = sao_share(params)
+        tree = enc._pipeline._intra()
+        log(f"[tree] 1080p all-intra CU{cu} intra_rdo qp32 deblock+SAO, "
+            f"{F_TREE} frames in flight: {F_TREE} frames in {dt:.3f} s = "
+            f"{F_TREE / dt:.4f} fps; bits/frame "
+            f"{np.mean([e.bits for e in efs]):.0f}; luma PSNR "
+            f"{mean_psnr:.2f} dB; SAO on in {100 * share:.1f}% of CTBs, "
+            f"{n_on}/{F_TREE} frames; {tree.nsteps} wavefront steps of "
+            f"{tree.nslot} CTB32 slots; kernel launches "
+            f"{dict(LAUNCHES)} (no hand kernel on this path)")
+        if cu == 32:
+            first = efs[0].annex_b()
+    t = time.perf_counter()
+    cpu = encode_all(Encoder(tree_config(W_TREE, H_TREE, 32, 1),
+                             device="cpu"), frames[:1])
+    check(cpu[0].annex_b() == first, "CUDA tree stream != CPU stream")
+    log(f"[tree] 1080p CU32 frame 0 re-encoded alone on the CPU (plain "
+        f"path, single-frame path, {time.perf_counter() - t:.1f} s): "
+        f"Annex-B bytes identical to the card's batched encode")
+
+
+def phase_sao_ippp(frames):
+    """Path B on the card: 720p IPPP CU16 with SAO (1 I + 7 P); the coarse
+    sweep kernel runs once per P frame; the first two frames re-encoded on
+    the CPU give identical bytes."""
+    from homerhevc_tpu_torch.api import Encoder
+    from homerhevc_tpu_torch.config import EncoderConfig
+    from homerhevc_tpu_torch.device import LAUNCHES, reset_launches
+    from homerhevc_tpu_torch.utils.profiler import PROFILER
+    cfg = EncoderConfig(width=W, height=H, cu_size=16, gop_size=1, qp=32,
+                        sign_hiding=True, deblocking=True, sao=True)
+    encode_all(Encoder(cfg), frames[:3])                     # warm-up
+    torch.cuda.synchronize()
+    enc = Encoder(cfg)
+    PROFILER.reset()
+    reset_launches()
+    t = time.perf_counter()
+    efs = encode_all(enc, frames[:N_SAO])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = dict(LAUNCHES)
+    check(launches["coarse_sweep_sads"] == N_SAO - 1, launches)
+    mean_psnr = check_frames(efs, frames, ["I"] + ["P"] * (N_SAO - 1))
+    log(f"[sao] 720p IPPP CU16 qp32 deblock+SAO: {N_SAO} frames (1 I + "
+        f"{N_SAO - 1} P) in {dt:.3f} s = {N_SAO / dt:.3f} fps; bits/frame "
+        f"{np.mean([e.bits for e in efs]):.0f}; luma PSNR {mean_psnr:.2f} "
+        f"dB; coarse sweep launches {launches['coarse_sweep_sads']}")
+    log("[sao] host scopes:\n" + PROFILER.report())
+    cpu = encode_all(Encoder(cfg, device="cpu"), frames[:2])
+    check(b"".join(e.annex_b() for e in cpu)
+          == b"".join(e.annex_b() for e in efs[:2]),
+          "CUDA IPPP+SAO stream != CPU stream")
+    log("[sao] I+P at 720p with SAO re-encoded on the CPU: Annex-B bytes "
+        "identical")
+    return launches["coarse_sweep_sads"]
+
+
+def phase_tree_stages(frame):
+    """Where path A's time goes: one 1080p CU32 tree frame split by stage
+    (decide, wavefront, deblock, SAO, pack), first timed (the card
+    synchronised around each stage), then its aten ops counted by a
+    TorchDispatchMode (all ops, and those that are not views, which bounds
+    the kernel launches); then torch.profiler over the decision pass and
+    over the first PROFILE_STEPS wavefront steps."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from homerhevc_tpu_torch.api import Encoder
+
+    class OpCounter(TorchDispatchMode):
+        stage = "other"
+
+        def __init__(self):
+            super().__init__()
+            self.ops = Counter()
+            self.compute = Counter()
+
+        def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+            self.ops[self.stage] += 1
+            if not func.is_view:
+                self.compute[self.stage] += 1
+            return func(*args, **(kwargs or {}))
+
+    # the pipeline's encoder and padding (1080 lines code as 1088)
+    pipe = Encoder(tree_config(W_TREE, H_TREE, 32, 1))._pipeline
+    enc = pipe._intra()
+    frame = pipe._pad_frame(*frame)
+    counter = OpCounter()
+    seconds = Counter()
+    stages = {"_decide_impl": "decide", "_wavefront": "wavefront",
+              "_deblock": "deblock", "_sao": "sao", "_pack": "pack"}
+    for attr, name in stages.items():
+        def staged(*a, _f=getattr(enc, attr), _name=name, **k):
+            counter.stage = _name
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return _f(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                seconds[_name] += time.perf_counter() - t
+                counter.stage = "other"
+        setattr(enc, attr, staged)
+    y, u, v = (torch.as_tensor(p, device=DEV)[None] for p in frame)
+    qp = torch.tensor([32], dtype=torch.int32, device=DEV)
+    t = time.perf_counter()
+    enc._frame_impl(y, u, v, qp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    timed = dict(seconds)
+    with counter:
+        enc._frame_impl(y, u, v, qp)
+    torch.cuda.synchronize()
+    ops, compute = counter.ops, counter.compute
+    total, n_compute = sum(ops.values()), sum(compute.values())
+    names = list(stages.values())
+    log(f"[stages] 1080p CU32 tree frame alone: {wall:.3f} s; "
+        + ", ".join(f"{k} {timed[k]:.3f} s ({100 * timed[k] / wall:.1f}%)"
+                    for k in names))
+    log(f"[stages] the same frame: {total} aten ops, {n_compute} not views; "
+        + ", ".join(f"{k} {ops[k]} / {compute[k]}" for k in names
+                    + ["other"])
+        + f"; wavefront {ops['wavefront'] / enc.nsteps:.0f} ops "
+        f"({compute['wavefront'] / enc.nsteps:.0f} not views) per step over "
+        f"{enc.nsteps} steps of {enc.nslot} CTB32 slots")
+    for attr in stages:
+        delattr(enc, attr)
+    d8, m8 = enc._decide_impl(y, u, v, qp)
+    for label, fn in (
+            ("decision pass", lambda: enc._decide_impl(y, u, v, qp)),
+            (f"first {PROFILE_STEPS} wavefront steps",
+             lambda: enc._wavefront(y, u, v, qp, d8, m8,
+                                    n_steps=PROFILE_STEPS))):
+        profile_window(f"1080p CU32 tree {label}", fn)
+
+
+def profile_window(label, fn):
+    """fn() under torch.profiler: kernels, device busy time against the
+    (profiled) wall time, and the top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kern = [e for e in prof.events()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    dev_us = sum(getattr(e, "device_time", 0) or 0 for e in kern)
+    top = sorted(prof.key_averages(),
+                 key=lambda e: -getattr(e, "self_device_time_total", 0))
+    names = ", ".join(
+        f"{e.key[:40]} {getattr(e, 'self_device_time_total', 0) / 1e3:.2f}"
+        " ms" for e in top[:5])
+    log(f"[profile] {label}: wall {wall * 1e3:.2f} ms, {len(kern)} device "
+        f"kernels, device busy {dev_us / 1e3:.2f} ms "
+        f"({100 * dev_us / 1e3 / (wall * 1e3):.1f}% of wall); top: {names}")
+
+
+def phase_profile(frames):
+    """One I and one P frame of slice 1, and a P frame with SAO (slice 2),
+    under torch.profiler: kernel launches and device time against wall
+    time (the profiler's own cost inflates the wall time; phase 4 has the
+    unprofiled times)."""
     from homerhevc_tpu_torch.config import EncoderConfig
     from homerhevc_tpu_torch.engine.inter_encoder import TorchInterEncoder
     from homerhevc_tpu_torch.engine.intra_encoder import TorchIntraEncoder
@@ -436,29 +704,16 @@ def phase_profile(frames):
     _, ry, ru, rv = ie.encode_frame(y, u, v, 32)
     ref = reference_from_numpy((ry, ru, rv), DEV)
     pe.encode_frame(frames[1], ref)
-    torch.cuda.synchronize()
-    for label, fn in (
-            ("I frame (dispatch)", lambda: ie.dispatch_frames([y], [u], [v])),
-            ("P frame (dispatch)", lambda: pe.dispatch(frames[1], ref))):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        kern = [e for e in prof.events()
-                if str(getattr(e, "device_type", "")).endswith("CUDA")]
-        dev_us = sum(getattr(e, "device_time", 0) or 0 for e in kern)
-        top = sorted(prof.key_averages(),
-                     key=lambda e: -getattr(e, "self_device_time_total", 0))
-        names = ", ".join(
-            f"{e.key[:40]} {getattr(e, 'self_device_time_total', 0) / 1e3:.2f}"
-            " ms" for e in top[:5])
-        log(f"[profile] {label}: wall {wall * 1e3:.2f} ms, {len(kern)} "
-            f"device kernels, device busy {dev_us / 1e3:.2f} ms "
-            f"({100 * dev_us / 1e3 / (wall * 1e3):.1f}% of wall); top: "
-            f"{names}")
+    profile_window("I frame (dispatch)",
+                   lambda: ie.dispatch_frames([y], [u], [v]))
+    profile_window("P frame (dispatch)", lambda: pe.dispatch(frames[1], ref))
+    cfg_sao = EncoderConfig(width=W, height=H, cu_size=16, gop_size=1, qp=32,
+                            sign_hiding=True, deblocking=True, sao=True)
+    pe_sao = TorchInterEncoder(ParamSets.from_config(cfg_sao), cfg_sao,
+                               device=DEV)
+    pe_sao.encode_frame(frames[1], ref)
+    profile_window("P frame with SAO (dispatch)",
+                   lambda: pe_sao.dispatch(frames[1], ref))
 
 
 def main():
@@ -473,7 +728,11 @@ def main():
     rows = phase_kernel(frames)
     phase_digests()
     launches = phase_main_path(frames)
+    tree_frames = bench_frames(F_TREE, w=W_TREE, h=H_TREE)
+    phase_tree_path(tree_frames)
+    sao_launches = phase_sao_ippp(frames)
     phase_profile(frames)
+    phase_tree_stages(tree_frames[0])
     for name in ("jax", "homerhevc_tpu"):
         check(name not in sys.modules, f"{name} was imported")
     log("[isolation] neither jax nor homerhevc_tpu was imported")
@@ -482,7 +741,8 @@ def main():
         "name": "coarse_sweep_sads", "route": "cuda",
         "source": "homerhevc_tpu_torch/csrc/me_sad.cu",
         "replaces": "homerhevc_tpu/ops/pallas/me_sad.py:35",
-        "launches": launches["coarse_sweep_sads"], "max_abs_err": err,
+        "launches": launches["coarse_sweep_sads"] + sao_launches,
+        "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}]}), flush=True)
     print(smi("name,power.limit"), flush=True)

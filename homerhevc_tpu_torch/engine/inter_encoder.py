@@ -5,7 +5,8 @@ All CUs of a P frame are one batch (no intra-frame dependency): a
 hierarchical full-pel search (2x-decimated coarse sweep -> top-K votes ->
 shortlist + exact +-4 fine sweep at full resolution), half/quarter-pel
 refinement, luma MC + T/Q/SBH/zero-forcing, the batched merge-RD stage,
-chroma MC + residual, BS-map luma deblocking and the compact wire.
+chroma MC + residual, BS-map luma deblocking, device SAO and the compact
+wire.
 Bit-exact to the JAX program and to golden encode_inter_frame
 (merge_rd="fast").
 
@@ -14,7 +15,7 @@ The coarse sweep runs the hand-written CUDA kernel on a CUDA device
 
 Not ported yet (the pipeline refuses such configs, engine/pipeline.py
 unported): the CU32/CU64 tree, the FAR level (me_range > 32), intra-in-P,
-device SAO, per-CTB QP maps and the bi-predicted program.
+per-CTB QP maps and the bi-predicted program.
 """
 
 from __future__ import annotations
@@ -43,6 +44,9 @@ from homerhevc_tpu_torch.ops.pack import (cg_cap, esc_capacity,
                                           pack_capacity, pack_sparse_cg)
 from homerhevc_tpu_torch.ops.quant import (dequantize, quantize,
                                            sign_bit_hiding)
+from homerhevc_tpu_torch.ops.sao_dev import (pack_params, params_nbytes,
+                                             sao_analyze_apply,
+                                             sao_lambda_x256, unpack_params)
 from homerhevc_tpu_torch.ops.transform import (forward_transform,
                                                inverse_transform)
 from homerhevc_tpu_torch.state import tables_to_torch
@@ -94,8 +98,8 @@ class TorchInterEncoder:
             raise NotImplementedError("the torch P program is flat CU16")
         if cfg.me_range > max(32, 2 * search):
             raise NotImplementedError("the FAR ME level is not ported")
-        if cfg.intra_in_p or ps.sao_enabled:
-            raise NotImplementedError("intra-in-P / device SAO not ported")
+        if cfg.intra_in_p:
+            raise NotImplementedError("intra-in-P is not ported")
         self.perf = int(getattr(cfg, "performance_mode", 0))
         self.merge_rd = (bool(getattr(cfg, "merge_rd_device", True))
                          and self.perf == 0)
@@ -434,8 +438,12 @@ class TorchInterEncoder:
             mv8 = mvs.reshape(gh, gw, 2).repeat_interleave(2, 0) \
                 .repeat_interleave(2, 1)
             recon_y = self._deblock_inter(recon_y, nz8, mv8, qp)
-        return self._wire(recon_y, recon_u, recon_v, sy, [mvs16],
-                          ly, lu, lv)
+        extra = [mvs16]
+        if self.ps.sao_enabled:
+            recon_y, recon_u, recon_v, sao_p = self._sao(
+                sy, su, sv, recon_y, recon_u, recon_v, qp)
+            extra.append(sao_p)
+        return self._wire(recon_y, recon_u, recon_v, sy, extra, ly, lu, lv)
 
     def _deblock_inter(self, plane_y, nz8, mv8, qp):
         """BS maps (spec 8.7.2.4: nz or mv mismatch -> 1 on the TU16 grid)
@@ -452,6 +460,14 @@ class TorchInterEncoder:
         bs_v = (vv & (nz8 | _sh1(nz8) | dl)).to(torch.int32)
         bs_h = (vh & (nz8 | _shift_down(nz8) | dt)).to(torch.int32)
         return deblock_luma_bs(plane_y, bs_v, bs_h, qp)
+
+    def _sao(self, sy, su, sv, recon_y, recon_u, recon_v, qp: int):
+        """Device SAO decide + apply (ops/sao_dev.py): the filtered planes
+        and the packed params for the wire meta."""
+        ry_f, ru_f, rv_f, params = sao_analyze_apply(
+            sy, su, sv, recon_y.to(torch.int32), recon_u.to(torch.int32),
+            recon_v.to(torch.int32), self.ps.ctu_size, sao_lambda_x256(qp))
+        return ry_f, ru_f, rv_f, pack_params(params)
 
     def _wire(self, recon_y, recon_u, recon_v, sy, extra, ly, lu, lv):
         """Device->host wire: recon planes stay on the device; levels go as
@@ -491,7 +507,8 @@ class TorchInterEncoder:
     def dispatch(self, src, ref, avg_dist: float = 1000.0, qp=None):
         """Launch the device program; returns the device output tuple
         without any device->host copy. self.last_dev holds the
-        (device-resident) post-deblock recon for chaining the next frame."""
+        (device-resident) post-deblock, post-SAO recon for chaining the
+        next frame."""
         qp = self.cfg.qp if qp is None else int(qp)
         zf = torch.tensor(zf_multiplier(avg_dist, qp), dtype=torch.float32,
                           device=self.device)
@@ -509,8 +526,16 @@ class TorchInterEncoder:
         gh, gw = self.gh, self.gw
         nmv = gh * gw * 4
         mvs = meta_np[:nmv].copy().view(np.int16).reshape(gh, gw, 2)
-        row_ssd = meta_np[nmv:nmv + self.h * 4].copy().view(np.int32)
-        off = nmv + self.h * 4
+        off = nmv
+        sao_params = None
+        if self.ps.sao_enabled:
+            sgh = self.h // self.ps.ctu_size
+            sgw = self.w // self.ps.ctu_size
+            nb = params_nbytes(sgh, sgw)
+            sao_params = unpack_params(meta_np[off:off + nb], sgh, sgw)
+            off += nb
+        row_ssd = meta_np[off:off + self.h * 4].copy().view(np.int32)
+        off += self.h * 4
         n_tot = self.w * self.h * 3 // 2
         E = esc_capacity(n_tot, self.pack_C)
         wire = _parse_cg_wire(meta_np[None, off:], 0, n_tot, self.pack_C,
@@ -530,7 +555,7 @@ class TorchInterEncoder:
         desc.coef_u = np.ascontiguousarray(pu, np.int16)
         desc.coef_v = np.ascontiguousarray(pv, np.int16)
         desc.row_ssd_y = row_ssd     # exact luma SSD per row vs source
-        desc.sao_params = None
+        desc.sao_params = sao_params  # device-decided (recon pre-filtered)
         select_inter_syntax(self.ps, desc, cu)
         return (desc, DevicePlane(recon_y), DevicePlane(recon_u),
                 DevicePlane(recon_v))

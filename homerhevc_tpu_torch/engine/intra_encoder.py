@@ -30,7 +30,7 @@ from homerhevc_tpu_torch.ops.deblock import (deblock_chroma_uniform,
 from homerhevc_tpu_torch.ops.pack import (cg_cap, esc_capacity,
                                           pack_capacity, pack_sparse_cg,
                                           unpack_sparse_cg)
-from homerhevc_tpu_torch.ops.quant import (dequantize, quantize,
+from homerhevc_tpu_torch.ops.quant import (dequantize, quantize, scan_class,
                                            sign_bit_hiding)
 from homerhevc_tpu_torch.ops.transform import (forward_transform,
                                                inverse_transform)
@@ -142,12 +142,98 @@ def as_device_plane(a, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.uint8), device=device)
 
 
+def pack_frames(frames, w: int, h: int, device) -> torch.Tensor:
+    """Pack a batch of (y, u, v) frames into one (F, w*h*3/2) uint8 buffer
+    on the device: one upload per batch."""
+    wh = w * h
+    packed = np.empty((len(frames), wh * 3 // 2), np.uint8)
+    for i, (y, u, v) in enumerate(frames):
+        packed[i, :wh] = np.asarray(y, np.uint8).reshape(-1)
+        packed[i, wh:wh + wh // 4] = np.asarray(u, np.uint8).reshape(-1)
+        packed[i, wh + wh // 4:] = np.asarray(v, np.uint8).reshape(-1)
+    return torch.from_numpy(packed).to(device)
+
+
+def unpack_frames(handle: torch.Tensor, w: int, h: int):
+    """The (F, h, w), (F, h/2, w/2), (F, h/2, w/2) planes of a buffer of
+    pack_frames (views, no copy)."""
+    wh = w * h
+    return (handle[:, :wh].reshape(-1, h, w),
+            handle[:, wh:wh + wh // 4].reshape(-1, h // 2, w // 2),
+            handle[:, wh + wh // 4:].reshape(-1, h // 2, w // 2))
+
+
+class WireFrameEncoder:
+    """Host glue of the batched intra encoders: upload, dispatch, and the
+    fetch of the compact wire. A subclass sets device, cfg, w, h, pack_C
+    and cg_C, and gives _frame_impl(src_y, src_u, src_v, qp) -> (recon_y,
+    recon_u, recon_v, ly, lu, lv, meta), _meta_prefix() (the bytes of a
+    frame's meta row before its CG wire) and _desc(prefix) (a FrameDesc
+    with the maps of that prefix; the coefficients are attached here)."""
+
+    def pack_upload(self, frames):
+        return pack_frames(frames, self.w, self.h, self.device)
+
+    def dispatch_packed(self, handle, qps):
+        with PROFILER.scope("disp_run"):
+            qp = torch.as_tensor(np.asarray(qps, np.int32),
+                                 device=self.device)
+            return self._frame_impl(*unpack_frames(handle, self.w, self.h),
+                                    qp)
+
+    def dispatch_frames(self, ys, us, vs, qps=None):
+        """Launch the batched frame program; returns device tensors (CUDA
+        work is asynchronous). Pair with fetch_frames."""
+        if qps is None:
+            qps = [self.cfg.qp] * len(ys)
+        return self.dispatch_packed(self.pack_upload(list(zip(ys, us, vs))),
+                                    qps)
+
+    def fetch_frames(self, out, n_frames: int):
+        """Download the compact wire buffer and rebuild FrameDescs;
+        reconstruction planes stay device-resident (DevicePlane)."""
+        ry, ru, rv, ly, lu, lv, meta = out
+        with PROFILER.scope("fetch_meta"):
+            meta_np = meta.cpu().numpy()           # ONE device->host copy
+        n_tot = self.w * self.h * 3 // 2
+        off = self._meta_prefix()
+        wire = _parse_cg_wire(meta_np, off, n_tot, self.pack_C, self.cg_C,
+                              esc_capacity(n_tot, self.pack_C))
+        shapes = [(self.h, self.w), (self.h // 2, self.w // 2),
+                  (self.h // 2, self.w // 2)]
+        results = []
+        with PROFILER.scope("fetch_unpack"):
+            for i in range(n_frames):
+                desc = self._desc(meta_np[i, :off])
+                desc.cg_wire = _wire_frame(wire, i, shapes)
+                if desc.cg_wire is None:       # a wire capacity overflowed
+                    planes = _unpack_cg_frame(
+                        wire, i, n_tot, shapes,
+                        lambda: (ly[i].cpu().numpy(), lu[i].cpu().numpy(),
+                                 lv[i].cpu().numpy()))
+                    desc.coef_y, desc.coef_u, desc.coef_v = (
+                        np.ascontiguousarray(p, np.int16) for p in planes)
+                else:     # wire-direct: FrameDesc.densify on demand
+                    desc.coef_y = desc.coef_u = desc.coef_v = None
+                results.append((desc, DevicePlane(ry, i),
+                                DevicePlane(ru, i), DevicePlane(rv, i)))
+        return results
+
+    def encode_frames(self, ys, us, vs, qps=None):
+        """Batched: lists of F frames -> list of (desc, ry, ru, rv)."""
+        return self.fetch_frames(self.dispatch_frames(ys, us, vs, qps=qps),
+                                 len(ys))
+
+    def encode_frame(self, y, u, v, qp: int):
+        return self.encode_frames([y], [u], [v], qps=[qp])[0]
+
+
 def _sh1(a: torch.Tensor) -> torch.Tensor:
     """Shift along the slot axis (dim 1): out[:, s] = a[:, s-1], 0 at s=0."""
     return torch.cat([torch.zeros_like(a[:, :1]), a[:, :-1]], dim=1)
 
 
-class TorchIntraEncoder:
+class TorchIntraEncoder(WireFrameEncoder):
     """Wavefront all-intra CU16 encoder on one torch device. QP is a
     per-frame input; everything static is precomputed at init."""
 
@@ -174,28 +260,6 @@ class TorchIntraEncoder:
         self._slot_valid = torch.nonzero(valid).reshape(-1)
 
     # -- helpers -----------------------------------------------------------
-
-    @staticmethod
-    def _scan_class(modes: torch.Tensor, n: int, is_luma: bool):
-        """Scan index (0 diag, 1 hor, 2 ver) per block."""
-        log2n = n.bit_length() - 1
-        if not (log2n == 2 or (log2n == 3 and is_luma)):
-            return torch.zeros_like(modes)
-        ver = (modes >= 6) & (modes <= 14)
-        hor = (modes >= 22) & (modes <= 30)
-        return torch.where(ver, 2, torch.where(hor, 1, 0))
-
-    def _sbh_by_scan_q(self, lvl, coef, n, qp, scan_sel, is_luma=True):
-        log2n = n.bit_length() - 1
-        sl = self.ps.scaling_list_enabled
-        if not (log2n == 2 or (log2n == 3 and is_luma)):
-            # only the diagonal scan can occur at this size
-            return sign_bit_hiding(lvl, coef, n, qp, True, 0, sl)
-        out = lvl
-        for s in (0, 1, 2):
-            adj = sign_bit_hiding(lvl, coef, n, qp, True, s, sl)
-            out = torch.where((scan_sel == s)[:, None, None], adj, out)
-        return out
 
     def _refs_from_prev(self, p1_brow, p1_rcol, p2_brow, p3_brow, n, mask):
         """Substituted (top[2n+1], left[2n+1]) per (frame, slot) from the
@@ -227,9 +291,8 @@ class TorchIntraEncoder:
         coef = forward_transform(resid, is_dst)
         lvl = quantize(coef, n, qp, True, sl)
         if self.ps.sign_hiding:
-            lvl = self._sbh_by_scan_q(lvl, coef, n, qp,
-                                      self._scan_class(best, n, is_luma),
-                                      is_luma)
+            lvl = sign_bit_hiding(lvl, coef, n, qp, True,
+                                  scan_class(best, n, is_luma), sl)
         deq = dequantize(lvl, n, qp, True, sl)
         rres = inverse_transform(deq, is_dst)
         any_nz = (lvl != 0).any(dim=-1).any(dim=-1)
@@ -250,7 +313,7 @@ class TorchIntraEncoder:
 
     # -- whole-frame program --------------------------------------------------
 
-    def _encode_frames_impl(self, src_y, src_u, src_v, qp):
+    def _frame_impl(self, src_y, src_u, src_v, qp):
         """src_*: (F, H, W) / (F, H/2, W/2) uint8 tensors; qp: (F,) int32.
         Returns (recon_y, recon_u, recon_v (uint8), ly, lu, lv (int16),
         meta (F, meta_len) uint8)."""
@@ -364,97 +427,22 @@ class TorchIntraEncoder:
              _u8(esc_count[:, None]), _u8(cg_count[:, None])], dim=1)
         return recon_y, recon_u, recon_v, ly, lu, lv, meta
 
-    # -- frame driver ------------------------------------------------------
+    # -- host glue (WireFrameEncoder) ---------------------------------------
 
-    def _build_desc(self, mode_grid, ly, lu, lv):
+    def _meta_prefix(self) -> int:
+        return self.gh * self.gw                   # the mode grid
+
+    def _desc(self, prefix):
         cu = self.cu
         desc = FrameDesc.alloc(self.w, self.h)
         desc.cu_depth[:] = self.ps.log2_ctu - (cu.bit_length() - 1)
         desc.tr_depth[:] = 0
-        mode_all = np.asarray(mode_grid, np.uint8)
+        mode_all = prefix.reshape(self.gh, self.gw)
         r = cu // 4
         desc.luma_mode[:] = np.repeat(np.repeat(mode_all, r, 0), r, 1)
         r8 = cu // 8
         desc.chroma_mode[:] = np.repeat(np.repeat(mode_all, r8, 0), r8, 1)
-        # ly=None: the caller attaches the CG wire instead (wire-direct
-        # serialization; FrameDesc.densify materializes on demand)
-        if ly is None:
-            desc.coef_y = desc.coef_u = desc.coef_v = None
-        else:
-            desc.coef_y = np.ascontiguousarray(ly, np.int16)
-            desc.coef_u = np.ascontiguousarray(lu, np.int16)
-            desc.coef_v = np.ascontiguousarray(lv, np.int16)
         return desc
-
-    def encode_frame(self, y, u, v, qp: int):
-        return self.encode_frames([y], [u], [v], qps=[qp])[0]
-
-    def dispatch_frames(self, ys, us, vs, qps=None):
-        """Launch the batched frame program; returns device tensors (CUDA
-        work is asynchronous). Pair with fetch_frames."""
-        if qps is None:
-            qps = [self.cfg.qp] * len(ys)
-        handle = ys if isinstance(ys, torch.Tensor) \
-            else self.pack_upload(list(zip(ys, us, vs)))
-        return self.dispatch_packed(handle, qps)
-
-    def pack_upload(self, frames):
-        """Pack a batch into one (F, w*h*3/2) uint8 buffer on the device."""
-        F = len(frames)
-        wh = self.w * self.h
-        packed = np.empty((F, wh * 3 // 2), np.uint8)
-        for i, (y, u, v) in enumerate(frames):
-            packed[i, :wh] = np.asarray(y, np.uint8).reshape(-1)
-            packed[i, wh:wh + wh // 4] = np.asarray(u, np.uint8).reshape(-1)
-            packed[i, wh + wh // 4:] = np.asarray(v, np.uint8).reshape(-1)
-        return torch.from_numpy(packed).to(self.device)
-
-    def dispatch_packed(self, handle, qps):
-        wh = self.w * self.h
-        with PROFILER.scope("disp_run"):
-            y = handle[:, :wh].reshape(-1, self.h, self.w)
-            u = handle[:, wh:wh + wh // 4].reshape(-1, self.h // 2,
-                                                   self.w // 2)
-            v = handle[:, wh + wh // 4:].reshape(-1, self.h // 2,
-                                                 self.w // 2)
-            qp = torch.as_tensor(np.asarray(qps, np.int32),
-                                 device=self.device)
-            return self._encode_frames_impl(y, u, v, qp)
-
-    def fetch_frames(self, out, n_frames: int):
-        """Download the compact wire buffer and rebuild FrameDescs;
-        reconstruction planes stay device-resident (DevicePlane)."""
-        ry, ru, rv, ly, lu, lv, meta = out
-        with PROFILER.scope("fetch_meta"):
-            meta_np = meta.cpu().numpy()           # ONE device->host copy
-        ng = self.gh * self.gw
-        n_tot = self.w * self.h * 3 // 2
-        E = esc_capacity(n_tot, self.pack_C)
-        modes = meta_np[:, :ng].reshape(n_frames, self.gh, self.gw)
-        wire = _parse_cg_wire(meta_np, ng, n_tot, self.pack_C, self.cg_C, E)
-        shapes = [(self.h, self.w), (self.h // 2, self.w // 2),
-                  (self.h // 2, self.w // 2)]
-        results = []
-        with PROFILER.scope("fetch_unpack"):
-            for i in range(n_frames):
-                w8 = _wire_frame(wire, i, shapes)
-                if w8 is not None:
-                    desc = self._build_desc(modes[i], None, None, None)
-                    desc.cg_wire = w8
-                else:
-                    py, pu, pv = _unpack_cg_frame(
-                        wire, i, n_tot, shapes,
-                        lambda: (ly[i].cpu().numpy(), lu[i].cpu().numpy(),
-                                 lv[i].cpu().numpy()))
-                    desc = self._build_desc(modes[i], py, pu, pv)
-                results.append((desc, DevicePlane(ry, i),
-                                DevicePlane(ru, i), DevicePlane(rv, i)))
-        return results
-
-    def encode_frames(self, ys, us, vs, qps=None):
-        """Batched: lists of F frames -> list of (desc, ry, ru, rv)."""
-        return self.fetch_frames(self.dispatch_frames(ys, us, vs, qps=qps),
-                                 len(ys))
 
 
 def _u8(a: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,23 @@
 """TorchPipeline: GOP/POC flow, frame dispatch to the port's device
-encoders, NAL assembly. Written from homerhevc_tpu/engine/pipeline.py
+encoders, SAO, NAL assembly. Written from homerhevc_tpu/engine/pipeline.py
 EncoderPipeline, restricted to the configurations the port covers:
 
   - all-intra CU16 (gop_size 0): frames are batched num_frames_in_flight
     at a time, with the upload / dispatch / background fetch pipeline;
+  - all-intra CU32 / CU64 with intra_rdo (gop_size 0, the fast decision,
+    no per-CTB QP maps): the intra CU-tree encoder, batched the same way,
+    with deblocking and SAO inside its device program;
   - IPPP CU16 (gop_size 1): the depth-2 P chain, whose motion search reads
     the device-resident recon of the previous frame; periodic and
     scene-change IDRs.
+
+SAO: the tree and P programs decide and apply SAO on the device and ship
+its parameters on the wire. The CU16 intra program has none, and for its
+frames SAO is decided and applied on the host (hevc/sao.py sao_decide),
+as the JAX package does for the same frames: this is that package's own
+behaviour, not a fallback, and it keeps the two streams equal (a device
+decision there would choose other, equally legal parameters). The P
+chain then predicts from the filtered picture.
 
 Rate control, WPP substreams and the native CABAC serializer work as in
 the JAX package. There is no numpy golden path: a configuration outside
@@ -22,7 +33,7 @@ from typing import Iterator
 
 import numpy as np
 
-from homerhevc_tpu_torch.config import EncoderConfig
+from homerhevc_tpu_torch.config import EncoderConfig, RDMode
 from homerhevc_tpu_torch.device import resolve_device
 from homerhevc_tpu_torch.engine.rate_control import RateControl
 from homerhevc_tpu_torch.hevc.bitstream import (
@@ -34,6 +45,7 @@ from homerhevc_tpu_torch.hevc.headers import (
     SLICE_I, SLICE_P, ParamSets, SliceParams, write_pps, write_slice_header,
     write_sps, write_vps,
 )
+from homerhevc_tpu_torch.hevc.sao import sao_apply_component, sao_decide
 from homerhevc_tpu_torch.hevc.syntax import SliceDataEncoder
 from homerhevc_tpu_torch.utils.profiler import PROFILER
 
@@ -42,25 +54,39 @@ from homerhevc_tpu_torch.utils.profiler import PROFILER
 _REF_DISTS = (1, 1)
 
 
+def tree_ok(cfg: EncoderConfig) -> bool:
+    """The intra CU-tree device path (decision + CTB32 wavefront with
+    in-loop deblocking and SAO) serves `cfg`, a config padded to whole
+    CTUs: the twin of EncoderPipeline._tpu_tree_ok."""
+    return (cfg.intra_rdo and cfg.cu_size in (32, 64)
+            and not (cfg.aq_strength > 0 or cfg.rc_ctu)
+            and cfg.rd_mode != RDMode.RD_FULL
+            and cfg.width % 32 == 0 and cfg.height % 32 == 0)
+
+
 def unported(cfg: EncoderConfig) -> str | None:
-    """Why `cfg` lies outside the configurations the port covers (and the
-    ROADMAP.md Queue 1 item that brings it), or None when it is covered."""
+    """Why `cfg` (padded to whole CTUs) lies outside the configurations the
+    port covers, and the ROADMAP.md Queue 1 item that brings it; None when
+    it is covered."""
     inter = cfg.gop_size != 0
     checks = (
-        (cfg.cu_size != 16, f"cu_size {cfg.cu_size} (the CU32/CU64 trees: "
-         "Queue 1 items 2 and 3)"),
-        (cfg.intra_rdo, "intra_rdo (the intra CU tree: Queue 1 item 2)"),
-        (cfg.sao, "SAO (Queue 1 item 1)"),
+        (inter and cfg.cu_size != 16,
+         f"cu_size {cfg.cu_size} with P frames (the CU32/CU64 inter tree: "
+         "Queue 1 item 1)"),
         (cfg.aq_strength > 0 or cfg.rc_ctu,
-         "per-CTB QP maps, AQ and row-RC (Queue 1 item 6)"),
-        (cfg.num_b != 0, "B frames (Queue 1 item 7)"),
-        (inter and cfg.gpb, "generalized-B P frames (Queue 1 item 7)"),
+         "per-CTB QP maps, AQ and row-RC (Queue 1 item 4)"),
+        ((cfg.cu_size != 16 or cfg.intra_rdo) and not tree_ok(cfg),
+         "an intra configuration the JAX package encodes only on its numpy "
+         "golden path (RD_FULL, intra_rdo at CU16, uniform CU32/CU64: "
+         "Queue 1 item 7)"),
+        (cfg.num_b != 0, "B frames (Queue 1 item 5)"),
+        (inter and cfg.gpb, "generalized-B P frames (Queue 1 item 5)"),
         (inter and cfg.num_ref_frames != 1,
-         "multi-reference P frames (Queue 1 item 7)"),
+         "multi-reference P frames (Queue 1 item 5)"),
         (inter and cfg.me_range > 32,
-         f"me_range {cfg.me_range} > 32 (the FAR level: Queue 1 item 4)"),
-        (inter and cfg.intra_in_p, "intra-in-P (Queue 1 item 5)"),
-        (cfg.num_devices != 1, "multi-GPU encoding (Queue 1 item 8)"),
+         f"me_range {cfg.me_range} > 32 (the FAR level: Queue 1 item 2)"),
+        (inter and cfg.intra_in_p, "intra-in-P (Queue 1 item 3)"),
+        (cfg.num_devices != 1, "multi-GPU encoding (Queue 1 item 6)"),
     )
     for bad, what in checks:
         if bad:
@@ -97,19 +123,20 @@ class _AsyncFetch:
 
 class TorchPipeline:
     def __init__(self, cfg: EncoderConfig, device):
+        # pad the coded picture to CTU multiples and crop on output via the
+        # SPS conformance window; the slice check reads the padded config
+        # (1080p is 1088 lines at CTU 32 and 64)
+        self.out_w, self.out_h = cfg.width, cfg.height
+        ctu = cfg.ctu_size
+        cw, ch = -(-cfg.width // ctu) * ctu, -(-cfg.height // ctu) * ctu
+        if (cw, ch) != (cfg.width, cfg.height):
+            cfg = dataclasses.replace(cfg, width=cw, height=ch)
         why = unported(cfg)
         if why is not None:
             raise NotImplementedError(
                 f"{why} is not ported to homerhevc_tpu_torch yet "
                 f"(ROADMAP.md)")
         self.device = resolve_device(device)
-        # pad the coded picture to CTU multiples and crop on output via the
-        # SPS conformance window
-        self.out_w, self.out_h = cfg.width, cfg.height
-        ctu = cfg.ctu_size
-        cw, ch = -(-cfg.width // ctu) * ctu, -(-cfg.height // ctu) * ctu
-        if (cw, ch) != (cfg.width, cfg.height):
-            cfg = dataclasses.replace(cfg, width=cw, height=ch)
         self.cfg = cfg
         self.ps = ParamSets.from_config(cfg)
         self.ps.conf_win_right = cw - self.out_w
@@ -125,9 +152,10 @@ class TorchPipeline:
         self._pending_q: list = []  # dispatched intra batches
         self._fetch_inflight = None  # _AsyncFetch of the oldest batch
         self._p_pendings: list = []  # dispatched P frames (depth 2)
-        # reference planes of the next P frame: the I frame's recon, then
-        # each dispatched P frame's device-resident recon
+        # reference planes of the next P frame: the I frame's (filtered)
+        # recon, then each dispatched P frame's device-resident recon
         self._ref = None
+        self._last_recon = None   # the last emitted frame's filtered recon
         self.avg_dist = 1000.0   # reference init, hmr_encoder_lib.c:913
         self.rc = RateControl(cfg)
         self._intra_enc = None
@@ -137,10 +165,13 @@ class TorchPipeline:
 
     def _intra(self):
         if self._intra_enc is None:
-            from homerhevc_tpu_torch.engine.intra_encoder import \
-                TorchIntraEncoder
-            self._intra_enc = TorchIntraEncoder(self.ps, self.cfg,
-                                                device=self.device)
+            if tree_ok(self.cfg):
+                from homerhevc_tpu_torch.engine.intra_tree_encoder import \
+                    TorchIntraTreeEncoder as Enc
+            else:
+                from homerhevc_tpu_torch.engine.intra_encoder import \
+                    TorchIntraEncoder as Enc
+            self._intra_enc = Enc(self.ps, self.cfg, device=self.device)
         return self._intra_enc
 
     def _inter(self):
@@ -153,14 +184,16 @@ class TorchPipeline:
 
     # ---- serialization ------------------------------------------------------
 
-    def _slice_params(self, slice_type, nal_type, qp, offsets=None):
+    def _slice_params(self, slice_type, nal_type, qp, offsets=None,
+                      sao=False):
         refs = (self.gop_poc - 1,) if slice_type != SLICE_I else ()
         sp = SliceParams(slice_type=slice_type, nal_type=nal_type,
-                         poc=self.gop_poc, qp=qp, ref_pocs_before=refs)
+                         poc=self.gop_poc, qp=qp, sao_luma=sao,
+                         sao_chroma=sao, ref_pocs_before=refs)
         return write_slice_header(self.ps, sp, entry_point_offsets=offsets)
 
     def _serialize_slice_wpp(self, desc, slice_type: int, nal_type: int,
-                             qp: int) -> bytes:
+                             qp: int, sao_params=None) -> bytes:
         """WPP slice: one CABAC substream per CTU row; contexts fork from the
         state after the second CTB of the row above (spec entropy sync)."""
         from homerhevc_tpu_torch import native
@@ -169,8 +202,8 @@ class TorchPipeline:
         with PROFILER.scope("ser_native"):
             res = native.encode_slice_native(
                 ps, desc, init_contexts(st, qp), ps.sign_hiding,
-                slice_type=slice_type, wpp=True, ref_dists=_REF_DISTS,
-                slice_qp=qp)
+                slice_type=slice_type, sao_params=sao_params, wpp=True,
+                ref_dists=_REF_DISTS, slice_qp=qp)
         if res is not None:
             payload, row_sizes = res
         else:
@@ -182,6 +215,7 @@ class TorchPipeline:
                 bw_row = BitWriter()
                 enc = CabacEncoder(bw_row, ctx)
                 sd = SliceDataEncoder(ps, desc, enc, slice_type, qp,
+                                      sao_params=sao_params,
                                       ref_dists=_REF_DISTS)
                 for cx in range(ps.ctus_x):
                     sd.encode_ctu(cx, cy)
@@ -200,28 +234,31 @@ class TorchPipeline:
         with PROFILER.scope("ser_escapes"):
             esc = ebsp_row_escapes(payload, row_sizes)
         offsets = [s + e for s, e in zip(row_sizes[:-1], esc[:-1])]
-        bw = self._slice_params(slice_type, nal_type, qp, offsets)
+        bw = self._slice_params(slice_type, nal_type, qp, offsets,
+                                sao=sao_params is not None)
         return make_nal(nal_type, bw.get_bytes() + payload)
 
     def _serialize_slice(self, desc, slice_type: int, nal_type: int,
-                         qp: int) -> bytes:
+                         qp: int, sao_params=None) -> bytes:
         ps = self.ps
         if ps.wpp:
-            return self._serialize_slice_wpp(desc, slice_type, nal_type, qp)
+            return self._serialize_slice_wpp(desc, slice_type, nal_type, qp,
+                                             sao_params)
         from homerhevc_tpu_torch import native
-        bw = self._slice_params(slice_type, nal_type, qp)
+        bw = self._slice_params(slice_type, nal_type, qp,
+                                sao=sao_params is not None)
         ctx = init_contexts("I" if slice_type == SLICE_I else "P", qp)
         with PROFILER.scope("ser_native"):
             payload = native.encode_slice_native(
                 ps, desc, ctx, ps.sign_hiding, slice_type=slice_type,
-                ref_dists=_REF_DISTS, slice_qp=qp)
+                sao_params=sao_params, ref_dists=_REF_DISTS, slice_qp=qp)
         if payload is not None:
             with PROFILER.scope("ser_nal"):
                 return make_nal(nal_type, bw.get_bytes() + payload)
         # no native library (no g++): the Python serializer
         enc = CabacEncoder(bw, ctx)
         sd = SliceDataEncoder(ps, desc, enc, slice_type, qp,
-                              ref_dists=_REF_DISTS)
+                              sao_params=sao_params, ref_dists=_REF_DISTS)
         n_ctus = ps.ctus_x * ps.ctus_y
         for i in range(n_ctus):
             sd.encode_ctu(i % ps.ctus_x, i // ps.ctus_x)
@@ -241,6 +278,19 @@ class TorchPipeline:
     def _emit(self, desc, ry, ru, rv, src, slice_type=SLICE_I, qp=None):
         from homerhevc_tpu_torch.api import EncodedFrame
         qp = self.cfg.qp if qp is None else qp
+        # device-decided SAO: the recon arrived filtered and the host only
+        # writes the syntax; CU16 I frames decide and apply it here
+        sao_params = getattr(desc, "sao_params", None)
+        device_sao = sao_params is not None
+        if self.ps.sao_enabled and not device_sao:
+            ctu = self.ps.ctu_size
+            with PROFILER.scope("sao"):
+                ry, ru, rv = (np.asarray(ry), np.asarray(ru), np.asarray(rv))
+                sao_params = sao_decide(src, (ry, ru, rv), ctu, qp)
+                ry = sao_apply_component(ry, sao_params, 0, ctu)
+                ru = sao_apply_component(ru, sao_params, 1, ctu // 2)
+                rv = sao_apply_component(rv, sao_params, 2, ctu // 2)
+        self._last_recon = (ry, ru, rv)
         nals = []
         if slice_type == SLICE_I:
             self.gop_poc = 0
@@ -250,7 +300,8 @@ class TorchPipeline:
         else:
             nal_type = NAL_TRAIL_R
         with PROFILER.scope("serialize"):
-            nals.append(self._serialize_slice(desc, slice_type, nal_type, qp))
+            nals.append(self._serialize_slice(desc, slice_type, nal_type, qp,
+                                              sao_params))
         if self.cfg.gop_size != 0:
             # average luma distortion per 4x4 partition, feeding the adaptive
             # inter zero-forcing threshold (reference avg_dist,
@@ -258,7 +309,7 @@ class TorchPipeline:
             # SSD: P frames ship per-row sums (desc.row_ssd_y), so their
             # recon never crosses to the host for this.
             rs = getattr(desc, "row_ssd_y", None)
-            if rs is not None:
+            if rs is not None and (sao_params is None or device_sao):
                 ssd = int(np.asarray(rs, np.int64).sum())
             else:
                 d = (np.asarray(ry, np.int64)
@@ -318,8 +369,10 @@ class TorchPipeline:
             yield from self._drain_p_pending()
             with PROFILER.scope("analyze_intra_device"):
                 desc, ry, ru, rv = self._intra().encode_frame(y, u, v, qp)
-            self._ref = (ry, ru, rv)
-            yield self._emit(desc, ry, ru, rv, (y, u, v), qp=qp)
+            ef = self._emit(desc, ry, ru, rv, (y, u, v), qp=qp)
+            # the next P frame predicts from the recon as filtered by SAO
+            self._ref = self._last_recon
+            yield ef
             return
         # P chain: dispatch frame i on the device (its ME reads the
         # device-resident recon of frame i-1), then do frame i-1's host half

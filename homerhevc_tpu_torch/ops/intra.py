@@ -160,6 +160,104 @@ def edge_fixes(pred: torch.Tensor, top_u, left_u, n: int, is_luma: bool):
     return pred
 
 
+@lru_cache(maxsize=None)
+def _mode_tables_np(n: int, is_luma: bool):
+    """Static per-mode lookup tables for predict_mode: (uses_filtered[35],
+    angle[35], inv_angle[35])."""
+    uses = np.zeros(35, bool)
+    ang = np.zeros(35, np.int32)
+    inv = np.zeros(35, np.int32)
+    for m in range(35):
+        uses[m] = mode_uses_filtered(m, n, is_luma)
+        if m >= 2:
+            ang[m] = int(PRED_ANGLE[m - 2])
+        if 11 <= m <= 25:
+            inv[m] = int(INV_ANGLE[m - 11])
+    return uses, ang, inv
+
+
+@lru_cache(maxsize=None)
+def _mode_tables(n: int, is_luma: bool, device: torch.device):
+    return tuple(torch.as_tensor(t, device=device)
+                 for t in _mode_tables_np(n, is_luma))
+
+
+def predict_mode(top_u: torch.Tensor, left_u: torch.Tensor, n: int,
+                 mode: torch.Tensor, is_luma: bool) -> torch.Tensor:
+    """Single-mode batched intra prediction with a per-block mode tensor.
+
+    top_u/left_u: (B, 2n+1) int32 corner-first refs; mode: (B,) int.
+    Returns (B, n, n) int32, bit-exact to the golden predictor (the [1 2 1]
+    filter rule, DC edge smoothing, the mode 10/26 gradient fixes). The
+    tree encoder's wavefront uses it where the mode is already decided:
+    one prediction instead of 35 in the sequential loop."""
+    B = top_u.shape[0]
+    dev = top_u.device
+    mode = mode.long()
+    uses_t, ang_t, inv_t = _mode_tables(n, is_luma, dev)
+    use_f = uses_t[mode][:, None]
+    top_f, left_f = filter_refs(top_u, left_u)
+    top = torch.where(use_f, top_f, top_u)
+    left = torch.where(use_f, left_f, left_u)
+    log2n = n.bit_length() - 1
+    x = torch.arange(n, dtype=torch.int32, device=dev)
+
+    # planar (spec 8.4.4.2.4): filtered refs per the distance rule
+    l_col = left[:, 1:n + 1]
+    t_row = top[:, 1:n + 1]
+    tr = top[:, n + 1, None, None]
+    bl = left[:, n + 1, None, None]
+    planar = ((n - 1 - x)[None, None, :] * l_col[:, :, None]
+              + (x + 1)[None, None, :] * tr
+              + (n - 1 - x)[None, :, None] * t_row[:, None, :]
+              + (x + 1)[None, :, None] * bl
+              + n) >> (log2n + 1)
+
+    # DC: unfiltered refs always
+    tu = top_u[:, 1:n + 1]
+    lu = left_u[:, 1:n + 1]
+    dc = (tu.sum(dim=1, dtype=torch.int32) + lu.sum(dim=1, dtype=torch.int32)
+          + n) >> (log2n + 1)
+    dcp = dc[:, None, None].expand(B, n, n)
+    if is_luma and n < 32:
+        dcp = dcp.clone()
+        dcp[:, 0, :] = (tu + 3 * dc[:, None] + 2) >> 2
+        dcp[:, :, 0] = (lu + 3 * dc[:, None] + 2) >> 2
+        dcp[:, 0, 0] = (lu[:, 0] + 2 * dc + tu[:, 0] + 2) >> 2
+
+    # angular (spec 8.4.4.2.6), both orientations via a main/side swap
+    angle = ang_t[mode]
+    inv = inv_t[mode]
+    vertical = (mode >= 18)[:, None]
+    main = torch.where(vertical, top, left)              # (B, 2n+1)
+    side = torch.where(vertical, left, top)
+    # extended ref ext[k+n] for k in [-n, 2n]
+    kk_neg = torch.arange(-n, 0, dtype=torch.int32, device=dev)
+    j = (kk_neg[None, :] * inv[:, None] + 128) >> 8      # (B, n)
+    ext_neg = torch.gather(side, 1, torch.clamp(j, 0, 2 * n).long())
+    ext = torch.cat([ext_neg, main], dim=1)              # (B, 3n+1)
+    pos = (x + 1)[None, :] * angle[:, None]              # (B, n) per row
+    frac = (pos & 31)[:, :, None]
+    bidx = (n + 1 + (pos >> 5)[:, :, None] + x[None, None, :]) \
+        .reshape(B, n * n)
+    a = torch.gather(ext, 1, torch.clamp(bidx, 0, 3 * n).long())
+    b = torch.gather(ext, 1, torch.clamp(bidx + 1, 0, 3 * n).long())
+    pr = ((32 - frac) * a.reshape(B, n, n) + frac * b.reshape(B, n, n)
+          + 16) >> 5
+    angp = torch.where(vertical[:, :, None], pr, pr.transpose(1, 2))
+    if is_luma and n < 32:
+        # mode 26 first-column / mode 10 first-row gradient fixes
+        corner = top_u[:, 0:1]
+        v26 = torch.clamp(tu[:, 0:1] + ((lu - corner) >> 1), 0, 255)
+        h10 = torch.clamp(lu[:, 0:1] + ((tu - corner) >> 1), 0, 255)
+        angp = angp.clone()
+        angp[:, :, 0] = torch.where(mode[:, None] == 26, v26, angp[:, :, 0])
+        angp[:, 0, :] = torch.where(mode[:, None] == 10, h10, angp[:, 0, :])
+    m3 = mode[:, None, None]
+    out = torch.where(m3 == 0, planar, torch.where(m3 == 1, dcp, angp))
+    return out.to(torch.int32)
+
+
 def avail_masks(w: int, h: int, ctu: int, n: int, comp_shift: int,
                 xs0: np.ndarray, ys0: np.ndarray) -> np.ndarray:
     """Vectorized z-scan availability (spec 6.4.1) for the substitution
@@ -188,22 +286,23 @@ def avail_masks(w: int, h: int, ctu: int, n: int, comp_shift: int,
 
 
 def gather_ref_seq(plane: torch.Tensor, n: int) -> torch.Tensor:
-    """(gh, gw, 4n+1) substitution-order raw reference samples for every
-    aligned n-block of `plane` (pre availability mask)."""
-    hh, ww = plane.shape
+    """(..., gh, gw, 4n+1) substitution-order raw reference samples for
+    every aligned n-block of `plane` (..., hh, ww) (pre availability
+    mask); leading axes are frames."""
+    hh, ww = plane.shape[-2:]
     n2 = 2 * n
     dev = plane.device
     pp = torch.nn.functional.pad(plane.to(torch.int32), (1, n2, 1, n2))
     gys = torch.arange(hh // n, device=dev) * n
     gxs = torch.arange(ww // n, device=dev) * n
-    lall = pp[:, gxs]                                   # (hh+n2+1, gw)
+    lall = pp[..., gxs]                                 # (hh+n2+1, gw)
     jidx = torch.arange(n2, device=dev)
     rows = gys[:, None] + (n2 - jidx)[None, :]          # (gh, n2)
-    seq_left = lall[rows].permute(0, 2, 1)              # (gh, gw, n2)
-    corner = pp[gys][:, gxs]                            # (gh, gw)
-    tall = pp[gys, :]                                   # (gh, ww+n2+1)
+    seq_left = lall[..., rows, :].transpose(-1, -2)     # (gh, gw, n2)
+    tall = pp[..., gys, :]                              # (gh, ww+n2+1)
+    corner = tall[..., gxs]                             # (gh, gw)
     cols = gxs[:, None] + 1 + jidx[None, :]             # (gw, n2)
-    seq_top = tall[:, cols]                             # (gh, gw, n2)
+    seq_top = tall[..., cols]                           # (gh, gw, n2)
     return torch.cat([seq_left, corner[..., None], seq_top], dim=-1)
 
 

@@ -117,28 +117,70 @@ def dequantize(level: torch.Tensor, size: int, qp, is_intra: bool,
     return torch.clamp(out, -32768, 32767).to(torch.int32)
 
 
+@lru_cache(maxsize=None)
+def _scan_tabs3(n: int, device: torch.device):
+    """The three scans (diag, hor, ver) of an n-block stacked: (3, n*n)."""
+    tabs = [_scan_tabs(n, s, device) for s in (0, 1, 2)]
+    return (torch.stack([t[0] for t in tabs]),
+            torch.stack([t[1] for t in tabs]))
+
+
+@lru_cache(maxsize=None)
+def _qc6_scan3(size: int, is_intra: bool, scaling_lists: bool,
+               device: torch.device) -> torch.Tensor:
+    return torch.stack([_qc6_scan(size, is_intra, scaling_lists, s, device)
+                        for s in (0, 1, 2)])
+
+
+def scan_class(modes: torch.Tensor, n: int, is_luma: bool):
+    """Intra scan index (0 diag, 1 hor, 2 ver) per block of an n-block
+    coded in `modes` (spec 7.4.9.11), or 0 where only the diagonal scan
+    can occur at this size: sign_bit_hiding's scan_idx."""
+    log2n = n.bit_length() - 1
+    if not (log2n == 2 or (log2n == 3 and is_luma)):
+        return 0
+    ver = (modes >= 6) & (modes <= 14)
+    hor = (modes >= 22) & (modes <= 30)
+    return torch.where(ver, 2, torch.where(hor, 1, 0))
+
+
 def sign_bit_hiding(level: torch.Tensor, coef: torch.Tensor, size: int, qp,
-                    is_intra: bool, scan_idx: int,
+                    is_intra: bool, scan_idx,
                     scaling_lists: bool = False) -> torch.Tensor:
     """Vectorized SBH over (..., N, N) blocks, bit-exact to golden: per
     eligible CG with wrong parity, the position minimizing the cost over
     {increase |l| (256-delta), decrease |l| (256+delta, not on a first
     coeff with |l|==1)}; ties go to the earlier scan position, and up
-    beats down at equal cost."""
+    beats down at equal cost.
+
+    scan_idx is one scan for every block, or a per-block int tensor of
+    the block dims (0 diag, 1 hor, 2 ver): one call then gives what three
+    calls and a per-block select would."""
     n = size
     log2n = n.bit_length() - 1
-    scan, inv = _scan_tabs(n, scan_idx, level.device)
     ncg = (n * n) // 16
     batch = level.shape[:-2]
-    cg_l = level.reshape(batch + (n * n,))[..., scan].reshape(
-        batch + (ncg, 16))
-    cg_c = coef.reshape(batch + (n * n,))[..., scan].reshape(
-        batch + (ncg, 16))
-    tshift = T.MAX_TR_DYNAMIC_RANGE - 8 - log2n
     per, rem = _qp_split(qp, level)
+    if isinstance(scan_idx, torch.Tensor):
+        scans, invs = _scan_tabs3(n, level.device)
+        s = scan_idx.long()
+        scan, inv = scans[s], invs[s]                 # batch + (n*n,)
+
+        def to_scan(a):
+            return torch.gather(a.reshape(batch + (n * n,)), -1, scan)
+        qc_scan = _qc6_scan3(n, is_intra, scaling_lists,
+                             level.device)[s, rem]
+    else:
+        scan, inv = _scan_tabs(n, scan_idx, level.device)
+
+        def to_scan(a):
+            return a.reshape(batch + (n * n,))[..., scan]
+        qc_scan = _qc6_scan(n, is_intra, scaling_lists, scan_idx,
+                            level.device)[rem]
+    cg_l = to_scan(level).reshape(batch + (ncg, 16))
+    cg_c = to_scan(coef).reshape(batch + (ncg, 16))
+    tshift = T.MAX_TR_DYNAMIC_RANGE - 8 - log2n
     qbits = T.QUANT_SHIFT + tshift + per          # () or batch + (1, 1)
-    qc_scan = _qc6_scan(n, is_intra, scaling_lists, scan_idx,
-                        level.device)[rem]
     abs_c = torch.abs(cg_c)
     abs_l = torch.abs(cg_l)
     # delta = (|c|*qc - |l|<<qbits) >> (qbits-8), in int32 with the
@@ -179,5 +221,7 @@ def sign_bit_hiding(level: torch.Tensor, coef: torch.Tensor, size: int, qp,
     upd = torch.where(need_fix, new_val, lv_at)
     cg_l = torch.where((idx == best_k[..., None]) & need_fix[..., None],
                        upd[..., None], cg_l)
-    out = cg_l.reshape(batch + (n * n,))[..., inv]
+    cg_l = cg_l.reshape(batch + (n * n,))
+    out = (torch.gather(cg_l, -1, inv) if isinstance(scan_idx, torch.Tensor)
+           else cg_l[..., inv])
     return out.reshape(batch + (n, n)).to(torch.int32)

@@ -1,6 +1,7 @@
 """Tests of the torch port that need an NVIDIA card: the hand-written CUDA
 kernel against its plain version, the wrapper's checks on CUDA tensors,
-and the encoders on the card against the same encoders on the CPU. They
+and the encoders (flat CU16 I and P, the intra CU tree, device SAO) and
+the ops they add on the card against the same code on the CPU. They
 skip here with a reason. This file imports no jax, so on the card's
 machine it runs without the JAX package's conftest:
 
@@ -15,8 +16,10 @@ from homerhevc_tpu_torch.config import EncoderConfig
 from homerhevc_tpu_torch.device import LAUNCHES
 from homerhevc_tpu_torch.engine.inter_encoder import TorchInterEncoder
 from homerhevc_tpu_torch.engine.intra_encoder import TorchIntraEncoder
+from homerhevc_tpu_torch.engine.intra_tree_encoder import \
+    TorchIntraTreeEncoder
 from homerhevc_tpu_torch.hevc.headers import ParamSets
-from homerhevc_tpu_torch.ops import me_sad
+from homerhevc_tpu_torch.ops import intra, me_sad, sao_dev
 from homerhevc_tpu_torch.state import reference_from_numpy
 
 pytestmark = pytest.mark.cuda
@@ -90,13 +93,14 @@ def _frame(rng, w, h):
     return y, u, u[::-1].copy()
 
 
-@pytest.mark.parametrize("deblock", [False, True])
-def test_encoders_on_card_match_cpu(card, deblock):
+@pytest.mark.parametrize("deblock,sao", [(False, False), (True, False),
+                                        (True, True)])
+def test_encoders_on_card_match_cpu(card, deblock, sao):
     w, h = 128, 64
     rng = np.random.RandomState(7)
     y, u, v = _frame(rng, w, h)
     cfg = EncoderConfig(width=w, height=h, qp=32, gop_size=1, intra_period=0,
-                        sao=False, deblocking=deblock, sign_hiding=True,
+                        sao=sao, deblocking=deblock, sign_hiding=True,
                         cu_size=16)
     ps = ParamSets.from_config(cfg)
     out = {}
@@ -119,3 +123,69 @@ def test_encoders_on_card_match_cpu(card, deblock):
         assert np.array_equal(getattr(cp, f), getattr(gp, f)), f
     for a, b in zip(crec, grec):
         assert np.array_equal(a, b)
+    if sao:
+        _assert_sao_equal(cp.sao_params, gp.sao_params)
+
+
+def _assert_sao_equal(p, q):
+    for f in ("type_luma", "type_chroma", "eo_class_luma", "eo_class_chroma",
+              "band_pos", "offsets", "merge_left", "merge_up"):
+        assert np.array_equal(getattr(p, f), getattr(q, f)), f
+
+
+def test_sao_on_card_matches_cpu(card):
+    """Device SAO over a batch of two 128x64 frames at CTU 32."""
+    rng = np.random.RandomState(11)
+    src = [rng.randint(0, 256, (2, hh, ww)).astype(np.int32)
+           for hh, ww in ((64, 128), (32, 64), (32, 64))]
+    rec = [np.clip(s + rng.randint(-6, 7, s.shape), 0, 255).astype(np.int32)
+           for s in src]
+    lam = sao_dev.sao_lambda_x256(torch.tensor([32, 27]))
+    out = {}
+    for dev in ("cpu", card):
+        r = sao_dev.sao_analyze_apply(
+            *(torch.from_numpy(p).to(dev) for p in src + rec), 32,
+            lam.to(dev))
+        out[str(dev)] = [t.cpu() for t in r[:3]] + [
+            sao_dev.pack_params(r[3]).cpu()]
+    for a, b in zip(out["cpu"], out[str(card)]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,luma", [(4, True), (8, True), (16, True),
+                                    (32, True), (4, False), (16, False)])
+def test_predict_mode_on_card_matches_cpu(card, n, luma):
+    rng = np.random.RandomState(n)
+    top = torch.from_numpy(rng.randint(0, 256, (70, 2 * n + 1)))
+    left = torch.from_numpy(rng.randint(0, 256, (70, 2 * n + 1)))
+    mode = torch.arange(35).repeat(2)
+    want = intra.predict_mode(top.int(), left.int(), n, mode, luma)
+    got = intra.predict_mode(top.int().to(card), left.int().to(card), n,
+                             mode.to(card), luma)
+    assert torch.equal(want, got.cpu())
+
+
+@pytest.mark.parametrize("cu", [32, 64])
+def test_tree_encoder_on_card_matches_cpu(card, cu):
+    """The intra CU tree with deblocking and SAO, a batch of two frames:
+    maps, levels, recon and SAO parameters equal the CPU path's."""
+    w, h = 128, 64
+    rng = np.random.RandomState(cu)
+    frames = [_frame(rng, w, h) for _ in range(2)]
+    cfg = EncoderConfig(width=w, height=h, qp=30, gop_size=0, cu_size=cu,
+                        intra_rdo=True, sao=True, deblocking=True,
+                        sign_hiding=True)
+    ps = ParamSets.from_config(cfg)
+    out = {}
+    for dev in ("cpu", card):
+        res = TorchIntraTreeEncoder(ps, cfg, device=dev).encode_frames(
+            *zip(*frames), qps=[30, 34])
+        out[str(dev)] = [(d.densify(), [np.asarray(p) for p in rec])
+                         for d, *rec in res]
+    for (cd, crec), (gd, grec) in zip(out["cpu"], out[str(card)]):
+        for f in ("cu_depth", "luma_mode", "chroma_mode", "coef_y", "coef_u",
+                  "coef_v"):
+            assert np.array_equal(getattr(cd, f), getattr(gd, f)), f
+        for a, b in zip(crec, grec):
+            assert np.array_equal(a, b)
+        _assert_sao_equal(cd.sao_params, gd.sao_params)

@@ -1,7 +1,9 @@
 """Pins chip_smoke.py's parity digests to the JAX package: the seeded
-128x64 I frame (deblocking off and on) and P frame, encoded by
-homerhevc_tpu.golden and serialized by homerhevc_tpu.hevc, hash to
-GOLDEN_DIGESTS; the port's CPU path hashes to the same. On the card,
+128x64 I frame (deblocking off and on), P frame and intra CU-tree frames
+(CTU 32 and 64 with deblocking), encoded by homerhevc_tpu.golden and
+serialized by homerhevc_tpu.hevc, hash to GOLDEN_DIGESTS; the port's CPU
+path hashes to the same. The SAO tree cell is pinned in test_torch_sao.py,
+where the JAX SAO is compiled at its shape anyway. On the card,
 chip_smoke.py holds the port's CUDA path to these constants."""
 
 import types
@@ -14,6 +16,9 @@ from homerhevc_tpu.golden import deblock as gdb
 from homerhevc_tpu.golden.inter_frame import encode_inter_frame
 from homerhevc_tpu.golden.intra_frame import encode_intra_frame
 from homerhevc_tpu.hevc import bitstream, cabac, ctx_tables, headers, syntax
+from tests.torch_golden import golden_tree
+
+SAO_CELL = "I tree CU32 deblock+SAO"
 
 _HEVC = types.SimpleNamespace(headers=headers, bitstream=bitstream,
                               cabac=cabac, ctx_tables=ctx_tables,
@@ -50,11 +55,23 @@ def golden_digests():
     out["P"] = chip_smoke.digests(
         chip_smoke.slice_annexb(_HEVC, ps, desc, headers.SLICE_P, cfg.qp),
         (ry, ru, rv))
+    y, u, v = chip_smoke.tree_parity_inputs()
+    for name, cell in chip_smoke.TREE_CELLS.items():
+        if name == SAO_CELL:
+            continue
+        cfg = EncoderConfig(**chip_smoke.TREE_CFG, **cell)
+        ps = headers.ParamSets.from_config(cfg)
+        desc, ry, ru, rv = golden_tree(ps, y, u, v, cfg.qp)
+        out[name] = chip_smoke.digests(
+            chip_smoke.slice_annexb(_HEVC, ps, desc, headers.SLICE_I,
+                                    cfg.qp), (ry, ru, rv))
     return out
 
 
 def test_chip_smoke_digests_are_the_golden_encoders():
-    assert golden_digests() == chip_smoke.GOLDEN_DIGESTS
+    want = dict(chip_smoke.GOLDEN_DIGESTS)
+    del want[SAO_CELL]
+    assert golden_digests() == want
 
 
 def test_port_cpu_path_gives_the_golden_digests():

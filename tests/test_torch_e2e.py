@@ -1,7 +1,7 @@
 """The port end to end on the CPU: homerhevc_tpu_torch.api.Encoder gives
-Annex-B bytes identical to homerhevc_tpu.api.Encoder, the stream decodes
-in FFmpeg to the port's own luma recon, and the port runs without jax and
-without the JAX package."""
+Annex-B bytes identical to homerhevc_tpu.api.Encoder (with SAO and
+without), the stream decodes in FFmpeg to the port's own luma recon, and
+the port runs without jax and without the JAX package."""
 
 import os
 import subprocess
@@ -19,12 +19,13 @@ from tests.conftest import decode_annexb, make_yuv
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _frames(rng, w, h, n):
+def _frames(rng, w, h, n, noise=2):
     y, u, v = make_yuv(rng, w, h)
     out = []
     for i in range(n):
         yi = np.clip(np.roll(y, 3 * i, 1).astype(int)
-                     + rng.randint(-2, 3, y.shape), 0, 255).astype(np.uint8)
+                     + rng.randint(-noise, noise + 1, y.shape), 0, 255) \
+            .astype(np.uint8)
         out.append((yi, np.roll(u, i, 1), np.roll(v, i, 1)))
     return out
 
@@ -37,18 +38,41 @@ def _encode(enc, frames):
     return efs
 
 
-@pytest.mark.parametrize("gop,batch", [(1, 1), (0, 2)])
-def test_torch_stream_matches_jax_and_decodes(gop, batch, tmp_path):
-    """gop 1: the 4-frame IPPP CU16 slice; gop 0: batched all-intra."""
+@pytest.mark.parametrize("gop,batch,sao", [
+    pytest.param(1, 1, False, id="1-1"), pytest.param(0, 2, False, id="0-2"),
+    pytest.param(1, 1, True, id="1-1-sao"),
+    pytest.param(0, 2, True, id="0-2-sao")])
+def test_torch_stream_matches_jax_and_decodes(gop, batch, sao, tmp_path):
+    """gop 1: the 4-frame IPPP CU16 slice; gop 0: batched all-intra. With
+    SAO, on noisy frames: the I frames' SAO decided on the host and the P
+    frames' in the P program, each P frame predicting from the filtered
+    recon and its zero-forcing threshold read from it; SAO is on in some
+    CTB of every frame."""
     w, h = 128, 64
     kw = dict(width=w, height=h, cu_size=16, gop_size=gop, qp=32,
-              sign_hiding=True, deblocking=True, sao=False,
+              sign_hiding=True, deblocking=True, sao=sao,
               num_frames_in_flight=batch)
-    frames = _frames(np.random.RandomState(13), w, h, 4)
+    frames = _frames(np.random.RandomState(13), w, h, 4,
+                     noise=25 if sao else 2)
     want = _encode(JaxEncoder(JaxConfig(**kw)), frames)
-    got = _encode(TorchEncoder(EncoderConfig(**kw), device="cpu"), frames)
+    enc = TorchEncoder(EncoderConfig(**kw), device="cpu")
+    pipe = enc._pipeline
+    seen = []
+    serialize = pipe._serialize_slice
+
+    def spy(desc, slice_type, nal_type, qp, sao_params=None):
+        seen.append(sao_params)
+        return serialize(desc, slice_type, nal_type, qp, sao_params)
+    pipe._serialize_slice = spy
+    got = _encode(enc, frames)
     assert [e.frame_type for e in got] == \
         (["I", "P", "P", "P"] if gop else ["I"] * 4)
+    if sao:
+        assert len(seen) == 4 and all(
+            (p.type_luma != 0).any() or (p.type_chroma != 0).any()
+            for p in seen)
+    else:
+        assert seen == [None] * 4
     stream = b"".join(e.annex_b() for e in got)
     assert stream == b"".join(e.annex_b() for e in want)
     path = tmp_path / "port.265"

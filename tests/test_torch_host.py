@@ -1,7 +1,8 @@
 """The port's own host tier against the JAX package's modules it was copied
 from: tables, CABAC context init, headers, availability, the inter syntax
-selection, rate control and the native serializer give identical values
-and bytes on the same inputs, so the copies cannot drift apart."""
+selection, the host SAO decision and filter, rate control and the native
+serializer give identical values and bytes on the same inputs, so the
+copies cannot drift apart."""
 
 import dataclasses
 
@@ -18,6 +19,7 @@ from homerhevc_tpu.golden import interp as j_interp
 from homerhevc_tpu.golden import intra_pred as j_intra
 from homerhevc_tpu.hevc import ctx_tables as j_ctx
 from homerhevc_tpu.hevc import headers as j_headers
+from homerhevc_tpu.hevc import sao as j_sao
 from homerhevc_tpu.hevc import syntax as j_syntax
 from homerhevc_tpu.hevc import tables as j_tables
 from homerhevc_tpu_torch import native as t_native
@@ -27,6 +29,7 @@ from homerhevc_tpu_torch.engine.rate_control import RateControl
 from homerhevc_tpu_torch.hevc import ctx_tables as t_ctx
 from homerhevc_tpu_torch.hevc import headers as t_headers
 from homerhevc_tpu_torch.hevc import inter_syntax as t_inter
+from homerhevc_tpu_torch.hevc import sao as t_sao
 from homerhevc_tpu_torch.hevc import intra_pred as t_intra
 from homerhevc_tpu_torch.hevc import syntax as t_syntax
 from homerhevc_tpu_torch.hevc import tables as t_tables
@@ -140,6 +143,30 @@ def test_inter_syntax_and_native_slice_equal_the_jax_package(w, h, is_b):
     got = t_native.encode_slice_native(tps, td, t_ctx.init_contexts("P", 32),
                                        True, **args)
     assert want is not None and got == want
+
+
+@pytest.mark.parametrize("ctu,qp", [(16, 27), (32, 32), (64, 37)])
+def test_host_sao_equals_the_jax_package(ctu, qp):
+    """sao_decide (stats, RD offsets, counted-bit type and merge choice)
+    and sao_apply_component of the copy == the JAX package's module."""
+    rng = np.random.RandomState(ctu + qp)
+    h, w = 128, 128
+    src = tuple(rng.randint(0, 256, s).astype(np.uint8)
+                for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+    # recon: smoothed source + structured error so offsets are worth it
+    rec = tuple(np.clip((p.astype(np.int32) + np.roll(p, 1, 1)) // 2
+                        + rng.randint(-3, 4, p.shape), 0, 255)
+                .astype(np.uint8) for p in src)
+    want = j_sao.sao_decide(src, rec, ctu, qp)
+    got = t_sao.sao_decide(src, rec, ctu, qp)
+    for f in ("merge_left", "merge_up", "type_luma", "type_chroma",
+              "eo_class_luma", "eo_class_chroma", "band_pos", "offsets"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert (got.type_luma != 0).any()
+    for comp, n in ((0, ctu), (1, ctu // 2), (2, ctu // 2)):
+        assert np.array_equal(
+            t_sao.sao_apply_component(rec[comp], got, comp, n),
+            j_sao.sao_apply_component(rec[comp], want, comp, n))
 
 
 def test_rate_control_equals_the_jax_package():

@@ -1,8 +1,9 @@
 """The port stands alone: no module of homerhevc_tpu_torch and no line of
-chip_smoke.py imports jax or the JAX package; a 64x64 I + P encode runs
-with both blocked; every configuration outside the port's slice raises
-NotImplementedError when the Encoder is built (there is no golden
-fallback); the Encoder defaults to the card."""
+chip_smoke.py imports jax or the JAX package; a 64x64 I + P encode and an
+intra CU-tree encode, both with SAO, run with both blocked; every
+configuration outside the port's slices raises NotImplementedError when
+the Encoder is built (there is no golden fallback); the Encoder defaults
+to the card."""
 
 import ast
 import inspect
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from homerhevc_tpu_torch.api import Encoder
-from homerhevc_tpu_torch.config import EncoderConfig
+from homerhevc_tpu_torch.config import EncoderConfig, RDMode
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _FORBIDDEN = ("jax", "homerhevc_tpu")
@@ -69,17 +70,22 @@ def test_port_encodes_with_jax_and_the_jax_package_blocked():
         "    importlib.import_module(m.name)\n"
         "from homerhevc_tpu_torch.api import Encoder\n"
         "from homerhevc_tpu_torch.config import EncoderConfig\n"
-        "cfg = EncoderConfig(width=64, height=64, cu_size=16, gop_size=1,\n"
-        "                    qp=32, sao=False)\n"
-        "enc = Encoder(cfg, device='cpu')\n"
         "yy, xx = np.mgrid[0:64, 0:64]\n"
         "y = (100 + 60 * np.sin(xx / 5.0) + yy).astype(np.uint8)\n"
         "c = np.full((32, 32), 128, np.uint8)\n"
-        "efs = list(enc.encode(y, c, c))\n"
-        "efs += list(enc.encode(np.roll(y, 2, 1), c, c))\n"
-        "efs += list(enc.flush())\n"
-        "assert [e.frame_type for e in efs] == ['I', 'P']\n"
-        "assert all(len(e.annex_b()) > 0 for e in efs)\n"
+        "for kw, want in ((dict(cu_size=16, gop_size=1), ['I', 'P']),\n"
+        "                 (dict(cu_size=32, gop_size=0, intra_rdo=True),\n"
+        "                  ['I', 'I'])):\n"
+        "    cfg = EncoderConfig(width=64, height=64, qp=32, sao=True, **kw)\n"
+        "    enc = Encoder(cfg, device='cpu')\n"
+        "    efs = list(enc.encode(y, c, c))\n"
+        "    efs += list(enc.encode(np.roll(y, 2, 1), c, c))\n"
+        "    efs += list(enc.flush())\n"
+        "    assert [e.frame_type for e in efs] == want\n"
+        "    assert all(len(e.annex_b()) > 0 for e in efs)\n"
+        "from homerhevc_tpu_torch.engine.intra_tree_encoder import \\\n"
+        "    TorchIntraTreeEncoder\n"
+        "from homerhevc_tpu_torch.ops import sao_dev\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=_ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
@@ -91,21 +97,38 @@ def test_port_encodes_with_jax_and_the_jax_package_blocked():
 _BASE = dict(width=64, height=64, cu_size=16, gop_size=1, qp=32, sao=False)
 
 
+_TREE = dict(gop_size=0, cu_size=32, intra_rdo=True)
+
+
 @pytest.mark.parametrize("changes,item", [
-    (dict(sao=True), "item 1"),
-    (dict(cu_size=32), "items 2 and 3"),
-    (dict(num_b=1), "item 7"),
-    (dict(gpb=True), "item 7"),
-    (dict(me_range=64), "item 4"),
-    (dict(intra_in_p=True), "item 5"),
-    (dict(aq_strength=1.0), "item 6"),
-    (dict(rc_ctu=True), "item 6"),
-    (dict(intra_rdo=True, cu_size=32), "items 2 and 3"),
-    (dict(num_ref_frames=2), "item 7"),
-    (dict(num_devices=2), "item 8")])
+    (dict(cu_size=32), "item 1"),
+    (dict(num_b=1), "item 5"),
+    (dict(gpb=True), "item 5"),
+    (dict(me_range=64), "item 2"),
+    (dict(intra_in_p=True), "item 3"),
+    (dict(aq_strength=1.0), "item 4"),
+    (dict(rc_ctu=True), "item 4"),
+    (dict(intra_rdo=True, cu_size=32), "item 1"),
+    (dict(num_ref_frames=2), "item 5"),
+    (dict(num_devices=2), "item 6"),
+    (dict(_TREE, rd_mode=RDMode.RD_FULL), "item 7"),
+    (dict(_TREE, aq_strength=1.0), "item 4"),
+    (dict(gop_size=0, intra_rdo=True), "item 7"),
+    (dict(gop_size=0, cu_size=64), "item 7")])
 def test_unported_config_raises(changes, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         Encoder(EncoderConfig(**{**_BASE, **changes}), device="cpu")
+
+
+def test_slice_check_reads_the_padded_config():
+    """1080p is 1088 lines at CTU 32 and 64: the tree path takes it, as
+    the JAX package does (its check reads the padded config too); SAO on
+    the CU16 paths is covered."""
+    for cu in (32, 64):
+        Encoder(EncoderConfig(width=1920, height=1080, **{**_TREE,
+                                                           "cu_size": cu}),
+                device="cpu")
+    Encoder(EncoderConfig(**{**_BASE, "sao": True}), device="cpu")
 
 
 def test_encoder_defaults_to_the_card():

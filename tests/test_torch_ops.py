@@ -85,6 +85,17 @@ def test_sign_bit_hiding(n, scan, per_block):
                                  torch.from_numpy(coef), n, qt, True, scan)
         assert _eq(want, got)
         assert not np.array_equal(np.asarray(want), lvl)   # SBH acted
+        if n <= 8:
+            # one call with a per-block scan == three calls and a select
+            sel = rng.randint(0, 3, coef.shape[0])
+            per = [np.asarray(jq.sign_bit_hiding(
+                jnp.asarray(lvl), jnp.asarray(coef), n, qj, True, s))
+                for s in (0, 1, 2)]
+            got = tq.sign_bit_hiding(torch.from_numpy(lvl),
+                                     torch.from_numpy(coef), n, qt, True,
+                                     torch.from_numpy(sel))
+            assert np.array_equal(np.choose(sel[:, None, None], per),
+                                  got.numpy())
 
 
 def _refs(rng, B, n, flat=False):
@@ -112,6 +123,24 @@ def test_intra_predictors(n, luma, flat):
                tin.edge_fixes(pt, tt_, tl_, n, luma))
 
 
+@pytest.mark.parametrize("n,luma", [(4, True), (8, True), (16, True),
+                                    (32, True), (4, False), (8, False),
+                                    (16, False), (32, False)])
+def test_predict_mode(n, luma):
+    """Single-mode prediction with a per-block mode vector, every one of
+    the 35 modes twice (random and flat refs) against the JAX function."""
+    rng = np.random.RandomState(200 + n + luma)
+    top, left = _refs(rng, 70, n)
+    ft, fl = _refs(rng, 70, n, flat=True)
+    top[35:], left[35:] = ft[35:], fl[35:]
+    mode = np.tile(np.arange(35, dtype=np.int32), 2)
+    predict = jax.jit(jin.predict_mode, static_argnums=(2, 4))
+    assert _eq(predict(jnp.asarray(top), jnp.asarray(left), n,
+                       jnp.asarray(mode), luma),
+               tin.predict_mode(torch.from_numpy(top), torch.from_numpy(left),
+                                n, torch.from_numpy(mode), luma))
+
+
 def test_ref_substitution_and_gather():
     rng = np.random.RandomState(3)
     n, B = 8, 9
@@ -126,9 +155,13 @@ def test_ref_substitution_and_gather():
     for a, b in zip(jin.seq_to_refs(jnp.asarray(vals), n),
                     tin.seq_to_refs(torch.from_numpy(vals), n)):
         assert _eq(a, b)
-    plane = rng.randint(0, 256, (32, 48)).astype(np.uint8)
-    assert _eq(jin.gather_ref_seq(jnp.asarray(plane), n),
-               tin.gather_ref_seq(torch.from_numpy(plane), n))
+    planes = rng.randint(0, 256, (2, 32, 48)).astype(np.uint8)
+    # one plane, and a leading frame axis (the tree decision's batch)
+    got = tin.gather_ref_seq(torch.from_numpy(planes), n)
+    for i in (0, 1):
+        want = jin.gather_ref_seq(jnp.asarray(planes[i]), n)
+        assert _eq(want, tin.gather_ref_seq(torch.from_numpy(planes[i]), n))
+        assert _eq(want, got[i])
     xs, ys = np.arange(6)[None, :] * 8, np.arange(4)[:, None] * 8
     assert np.array_equal(jin.avail_masks(96, 64, 16, 8, 0, xs, ys),
                           tin.avail_masks(96, 64, 16, 8, 0, xs, ys))
