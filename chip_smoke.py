@@ -7,16 +7,18 @@ passed):
   1. build csrc/me_sad.cu with nvcc (sm_90a) and the port's native CABAC
      library (g++);
   2. the coarse SAD sweep kernel against its plain PyTorch version on the
-     card, bit-exact, at the 720p slice shapes (m=8, R=16), at R=24, on
-     ragged grids, at m=16 and at the 0/255 extremes; kernel times from
+     card, bit-exact, at the 720p slice shapes (m=8, R=16), at R=24, at the
+     1080p shapes of path C (1088 coded lines: gh 68, gw 120; and gh 72),
+     on ragged grids, at m=16 and at the 0/255 extremes; kernel times from
      CUDA events with the L2 cache warm and cold, plain times, and the
      kernel's bound;
   3. the port on the card against SHA-256 digests of the JAX package's
      golden encoder at 128x64 (Annex-B bytes and recon planes of an I
-     frame with deblocking off and on, of a P frame, and of intra CU-tree
+     frame with deblocking off and on, of a P frame, of intra CU-tree
      frames at CTU 32 and 64 with deblocking and at CTU 32 with deblocking
-     and SAO); the digests are pinned to the JAX package by
-     tests/test_torch_digests.py;
+     and SAO, and of IPPP tree streams (I + 2 P) at CTU 32 and 64 with
+     deblocking and SAO); the digests are pinned to the JAX package by
+     tests/test_torch_digests.py and tests/test_torch_sao.py;
   4. the main paths through homerhevc_tpu_torch.api.Encoder, each with the
      kernel launch counts set to 0 just before and read just after it:
      720p IPPP CU16 (1 I + 15 P; its first two frames re-encoded on the
@@ -25,14 +27,18 @@ passed):
      deblocking and SAO, 4 frames in flight (frame 0 of CU32 re-encoded
      alone on the CPU gives identical bytes); 720p IPPP CU16 with SAO
      (1 I + 7 P, the sweep launched once per P frame, the first two
-     frames equal on the CPU) (slice 2); neither jax nor homerhevc_tpu
-     may be imported;
-  5. where the time goes: one I and one P frame of slice 1 and a P frame
-     with SAO under torch.profiler; one 1080p tree frame split by stage
+     frames equal on the CPU) (slice 2); path C, 1080p IPPP (1 I + 7 P)
+     with intra_rdo, deblocking and SAO at CTU 64 and at CTU 32 FAST (the
+     sweep launched once per P frame, some CTBs coded as CU32 / CU64, the
+     I and first P frame of CTU 64 equal on the CPU) (slice 3); neither
+     jax nor homerhevc_tpu may be imported;
+  5. where the time goes: one I and one P frame of slice 1, a P frame
+     with SAO and two CTU-64 P frames of path C under torch.profiler, and
+     the aten ops of a path-C P frame; one 1080p tree frame split by stage
      (decide, wavefront, deblock, SAO, pack), timed and its aten ops
      counted, then torch.profiler over the decision pass and the first 8
      wavefront steps.
-Then the kernel table (JSON; launches are those of the two IPPP runs of
+Then the kernel table (JSON; launches are those of the IPPP runs of
 phase 4), the card's name and power limit, and the result line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -55,6 +61,7 @@ N_INTRA, F_INTRA = 8, 4
 W_TREE, H_TREE = 1920, 1080   # path A: all-intra CU tree at 1080p
 F_TREE = 4                    # frames in flight, one batch
 N_SAO = 8                     # path B: 720p IPPP CU16 + SAO, 1 I + 7 P
+N_PATH_C = 8                  # path C: 1080p IPPP tree + SAO, 1 I + 7 P
 PROFILE_STEPS = 8             # wavefront steps under torch.profiler
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64       # Hopper SM: 64 INT32 lanes per clock
@@ -72,6 +79,14 @@ TREE_CFG = dict(width=128, height=64, qp=32, gop_size=0, intra_rdo=True,
 TREE_CELLS = {"I tree CU32 deblock": dict(cu_size=32, sao=False),
               "I tree CU64 deblock": dict(cu_size=64, sao=False),
               "I tree CU32 deblock+SAO": dict(cu_size=32, sao=True)}
+# the IPPP tree cells: I + 2 P of the tree frame panning right, intra_rdo,
+# deblocking and SAO, every P frame predicted from the filtered recon of
+# the one before with the zero-forcing threshold of the I frame (as the
+# pipeline's depth-2 P chain gives both)
+IPPP_CFG = dict(width=128, height=64, qp=32, gop_size=1, intra_period=0,
+                intra_rdo=True, deblocking=True, sao=True, sign_hiding=True)
+IPPP_CELLS = {"IPPP tree CU32 deblock+SAO": dict(cu_size=32),
+              "IPPP tree CU64 deblock+SAO": dict(cu_size=64)}
 GOLDEN_DIGESTS = {
     "I deblock=0": (
         "75cc9191de8a647a6a5b50d8b8a68a91c032bcd80b960d6c7e38399cab84f7fe",
@@ -91,6 +106,12 @@ GOLDEN_DIGESTS = {
     "I tree CU32 deblock+SAO": (
         "71b7dff370e5cdc4fa047202e332a05d8f7002a0b8982b6a56373e202908167c",
         "fceb07e9e880bed6bcba5c029401dbdabfc17d3ff3e1fc92d054de38a9c349cc"),
+    "IPPP tree CU32 deblock+SAO": (
+        "631507cc09722cbd51467cf0fcfee792ea25a0e0daa77c4a6234ddabfa6400c2",
+        "4909f79c0c44dfe1e5468a4e79f32444d3c25d152c48c497fe440e7b45d1fa04"),
+    "IPPP tree CU64 deblock+SAO": (
+        "86bd89a6bc13c9788a3f2a263ce8fac4ea69f7a511ce21eca926ac5d55e5fcbc",
+        "314c412ed45a2ac007d282a8ce4b4c2a15f1c66d633464ff0255fd7912480592"),
 }
 
 
@@ -115,20 +136,8 @@ def smi(query):
 def bench_frames(n, seed=42, w=W, h=H):
     """The bench.py clip: moving texture over gradients (720p unless
     another size is asked for)."""
-    rng = np.random.RandomState(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    tex = (rng.rand(h, w) * 40).astype(np.float32)
-    out = []
-    for t in range(n):
-        y = np.clip(60 + 0.08 * xx + 0.05 * yy
-                    + 30 * np.sin(xx / 37.0 + t * 0.3)
-                    + np.roll(tex, t * 4, axis=1), 0, 255).astype(np.uint8)
-        u = np.clip(128 + 20 * np.sin(xx[::2, ::2] / 53.0 + t * 0.2),
-                    0, 255).astype(np.uint8)
-        v = np.clip(128 + 20 * np.cos(yy[::2, ::2] / 41.0 - t * 0.1),
-                    0, 255).astype(np.uint8)
-        out.append((y, u, v))
-    return out
+    from homerhevc_tpu_torch.tools.p_frame_ops import bench_clip
+    return bench_clip(w, h, n, seed)
 
 
 def cuda_ms(fn, reps):
@@ -223,19 +232,24 @@ def sweep_bound(sd, rp, R, m):
             "bytes" if bytes_ms >= ops_ms else "operations", ops_ms)
 
 
-def phase_kernel(frames):
+def phase_kernel(frames, frames_1152):
+    """The sweep kernel against its plain version (frames: the 720p clip;
+    frames_1152: the clip at 1920x1152, cut to path C's 1088 coded lines
+    (gh 68) and to gh 72)."""
     from homerhevc_tpu_torch.device import LAUNCHES
     from homerhevc_tpu_torch.ops.me_sad import (coarse_sweep_sads,
                                                 coarse_sweep_sads_plain)
     rows = {}
     before = LAUNCHES["coarse_sweep_sads"]
-    cases = [("720p R=16", 16, 8, None, None, True),
-             ("720p R=24", 24, 8, None, None, True),
-             ("ragged 3x5 R=16", 16, 8, 3, 5, False),
-             ("ragged 1x37 R=13", 13, 8, 1, 37, False),
-             ("m=16 22x40 R=24", 24, 16, None, None, False)]
-    for label, R, m, gh, gw, timed in cases:
-        sd, rp = sweep_inputs(frames, R, m, gh, gw)
+    cases = [("720p R=16", frames, 16, 8, None, None, True),
+             ("720p R=24", frames, 24, 8, None, None, True),
+             ("1088 lines R=16", frames_1152, 16, 8, 68, 120, True),
+             ("1152 lines R=16", frames_1152, 16, 8, 72, 120, True),
+             ("ragged 3x5 R=16", frames, 16, 8, 3, 5, False),
+             ("ragged 1x37 R=13", frames, 13, 8, 1, 37, False),
+             ("m=16 22x40 R=24", frames, 24, 16, None, None, False)]
+    for label, clip, R, m, gh, gw, timed in cases:
+        sd, rp = sweep_inputs(clip, R, m, gh, gw)
         side = 2 * R + 1
         got = coarse_sweep_sads(sd, rp, R, m)
         torch.cuda.synchronize()
@@ -280,20 +294,21 @@ def phase_kernel(frames):
     return rows
 
 
-def slice_annexb(hevc, ps, desc, slice_type, qp, sao_params=None):
+def slice_annexb(hevc, ps, desc, slice_type, qp, sao_params=None, poc=None):
     """Annex-B bytes of one slice (VPS/SPS/PPS ahead of an I slice; a P
-    slice refers to POC 0) coded by the Python CABAC serializer of `hevc`,
-    a namespace of the modules headers, bitstream, cabac, ctx_tables and
-    syntax: the port's on the card, the JAX package's in the digest test.
-    With sao_params the slice header turns SAO on and every CTU codes its
-    parameters."""
+    slice of POC poc, 1 by default, refers to the POC before it) coded by
+    the Python CABAC serializer of `hevc`, a namespace of the modules
+    headers, bitstream, cabac, ctx_tables and syntax: the port's on the
+    card, the JAX package's in the digest test. With sao_params the slice
+    header turns SAO on and every CTU codes its parameters."""
     h, bs = hevc.headers, hevc.bitstream
     intra = slice_type == h.SLICE_I
     nal_type = bs.NAL_IDR_W_RADL if intra else bs.NAL_TRAIL_R
     sao = sao_params is not None
+    poc = (0 if intra else 1) if poc is None else poc
     sp = h.SliceParams(slice_type=slice_type, nal_type=nal_type,
-                       poc=0 if intra else 1, qp=qp, sao_luma=sao,
-                       sao_chroma=sao, ref_pocs_before=() if intra else (0,))
+                       poc=poc, qp=qp, sao_luma=sao, sao_chroma=sao,
+                       ref_pocs_before=() if intra else (poc - 1,))
     bw = h.write_slice_header(ps, sp)
     enc = hevc.cabac.CabacEncoder(
         bw, hevc.ctx_tables.init_contexts("I" if intra else "P", qp))
@@ -353,6 +368,21 @@ def tree_parity_inputs():
     return y, u, v
 
 
+def ippp_parity_inputs():
+    """The three frames of the IPPP tree cells: the tree frame moved right
+    by 2 luma / 1 chroma sample per frame."""
+    y, u, v = tree_parity_inputs()
+    return [(np.roll(y, 2 * t, 1), np.roll(u, t, 1), np.roll(v, t, 1))
+            for t in range(3)]
+
+
+def i_frame_avg_dist(src_y, recon_y):
+    """The pipeline's zero-forcing feedback after an I frame: the luma SSD
+    of the filtered recon per 4x4 partition, x1.5."""
+    d = np.asarray(recon_y, np.int64) - np.asarray(src_y, np.int64)
+    return float((d * d).sum()) / (d.size / 16.0) * 1.5
+
+
 def port_digests(device):
     """The port's digests of the parity cells, encoded on `device`."""
     from homerhevc_tpu_torch.config import EncoderConfig
@@ -390,6 +420,26 @@ def port_digests(device):
             .encode_frame(y, u, v, cfg.qp)
         out[name] = digests(slice_annexb(hevc, ps, desc, headers.SLICE_I,
                                          cfg.qp, desc.sao_params), rec)
+    frames = ippp_parity_inputs()
+    for name, cell in IPPP_CELLS.items():
+        cfg = EncoderConfig(**IPPP_CFG, **cell)
+        ps = headers.ParamSets.from_config(cfg)
+        desc, *rec = TorchIntraTreeEncoder(ps, cfg, device=device) \
+            .encode_frame(*frames[0], cfg.qp)
+        rec = [np.asarray(p) for p in rec]
+        stream = [slice_annexb(hevc, ps, desc, headers.SLICE_I, cfg.qp,
+                               desc.sao_params)]
+        planes = list(rec)
+        avg = i_frame_avg_dist(frames[0][0], rec[0])
+        inter = TorchInterEncoder(ps, cfg, device=device)
+        for poc in (1, 2):
+            desc, *rec = inter.encode_frame(
+                frames[poc], reference_from_numpy(rec, device), avg, cfg.qp)
+            rec = [np.asarray(p) for p in rec]
+            stream.append(slice_annexb(hevc, ps, desc, headers.SLICE_P,
+                                       cfg.qp, desc.sao_params, poc))
+            planes += rec
+        out[name] = digests(b"".join(stream), planes)
     return out
 
 
@@ -397,9 +447,10 @@ def phase_digests():
     got = port_digests(DEV)
     for k, want in GOLDEN_DIGESTS.items():
         check(got[k] == want, f"{k}: port {got[k]} != golden {want}")
-    log("[parity] 128x64 on the card: I frame (deblock off/on), P frame and "
-        "intra tree (CU32 / CU64 deblock, CU32 deblock+SAO) == the JAX "
-        "golden encoder's SHA-256 digests (Annex-B bytes and recon planes)")
+    log("[parity] 128x64 on the card: I frame (deblock off/on), P frame, "
+        "intra tree (CU32 / CU64 deblock, CU32 deblock+SAO) and IPPP tree "
+        "streams (I + 2 P, CU32 / CU64 deblock+SAO) == the JAX golden "
+        "encoder's SHA-256 digests (Annex-B bytes and recon planes)")
 
 
 def encode_all(enc, frames):
@@ -582,6 +633,93 @@ def phase_sao_ippp(frames):
     return launches["coarse_sweep_sads"]
 
 
+def tree_share(descs, ps):
+    """(share of CTB32 areas coded as one CU32, share coded inside a CU64)
+    over the P frames descs."""
+    d = np.stack([desc.cu_depth[::4, ::4] for desc in descs])
+    cu32 = float(np.mean(d == ps.log2_ctu - 5))
+    return cu32, (float(np.mean(d == 0)) if ps.ctu_size == 64 else 0.0)
+
+
+def phase_path_c(frames):
+    """Path C on the card: 1080p IPPP (1 I + 7 P) with the CU tree,
+    intra_rdo, deblocking and SAO at CTU 64, then at CTU 32 in the FAST
+    mode, each after a 256x128 warm-up of the same configuration; the sweep
+    runs once per P frame, some CTBs code as CU32 / CU64; the I and first P
+    frame of CTU 64 re-encoded on the CPU give the same Annex-B bytes; two
+    CTU-64 P frames under torch.profiler and one counted by aten op.
+    Returns the sweep's launches."""
+    from homerhevc_tpu_torch.api import Encoder
+    from homerhevc_tpu_torch.device import LAUNCHES, reset_launches
+    from homerhevc_tpu_torch.tools.p_frame_ops import (count_p_frame,
+                                                       p_frame_config)
+    from homerhevc_tpu_torch.utils.profiler import PROFILER
+    small = bench_frames(3, w=256, h=128)
+    n_p = N_PATH_C - 1
+    sweeps = 0
+    card64 = None
+    for label, cu, perf in (("CTU 64", 64, 0), ("CTU 32 FAST", 32, 1)):
+        encode_all(Encoder(p_frame_config(256, 128, cu, perf)), small)
+        torch.cuda.synchronize()
+        enc = Encoder(p_frame_config(W_TREE, H_TREE, cu, perf))
+        pipe = enc._pipeline
+        descs, emitted = [], []
+        emit = pipe._emit
+
+        def spy(desc, *a, **k):
+            descs.append(desc)
+            ef = emit(desc, *a, **k)
+            emitted.append(time.perf_counter())
+            return ef
+        pipe._emit = spy
+        PROFILER.reset()
+        reset_launches()
+        t = time.perf_counter()
+        efs = encode_all(enc, frames)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        dt = t_end - t
+        launches = dict(LAUNCHES)
+        check(launches["coarse_sweep_sads"] == n_p, launches)
+        sweeps += launches["coarse_sweep_sads"]
+        mean_psnr = check_frames(efs, frames, ["I"] + ["P"] * n_p)
+        cu32, cu64 = tree_share(descs[1:], pipe.ps)
+        check(cu32 + cu64 > 0, "no CTB coded as one CU32 / CU64")
+        bits = [e.bits for e in efs]
+        log(f"[path C] 1080p IPPP {label} intra_rdo qp32 deblock+SAO: "
+            f"{N_PATH_C} frames (1 I + {n_p} P) in {dt:.3f} s = "
+            f"{N_PATH_C / dt:.4f} fps; I frame {emitted[0] - t:.3f} s, P "
+            f"frames {(t_end - emitted[0]) / n_p * 1e3:.1f} ms each "
+            f"({n_p / (t_end - emitted[0]):.3f} fps); bits/frame "
+            f"{np.mean(bits):.0f} (I {bits[0]}, P mean "
+            f"{np.mean(bits[1:]):.0f}); luma PSNR {mean_psnr:.2f} dB; CTB32 "
+            f"areas of the P frames coded as one CU32 {100 * cu32:.1f}%, "
+            f"inside a CU64 {100 * cu64:.1f}%; coarse sweep launches "
+            f"{launches['coarse_sweep_sads']}")
+        log(f"[path C] {label} host scopes:\n" + PROFILER.report())
+        if cu == 64:
+            card64 = b"".join(e.annex_b() for e in efs[:2])
+            pe = pipe._inter()
+            ref = pe.last_dev
+            src = [pipe._pad_frame(*f) for f in frames[1:3]]
+            ops, compute = count_p_frame(pe, src[0], ref)
+            log(f"[path C] one CTU-64 P frame: {ops} aten ops, {compute} "
+                f"not views")
+            n_k, busy, wall = profile_window(
+                "path C CTU 64, 2 P frames (dispatch)",
+                lambda: [pe.dispatch(f, ref) for f in src])
+            log(f"[path C] CTU 64: {n_k / 2:.0f} kernels, device busy "
+                f"{busy / 2:.2f} ms per P frame")
+    t = time.perf_counter()
+    cpu = encode_all(Encoder(p_frame_config(W_TREE, H_TREE, 64),
+                             device="cpu"), frames[:2])
+    check(b"".join(e.annex_b() for e in cpu) == card64,
+          "CUDA path C stream != CPU stream")
+    log(f"[path C] 1080p CTU 64 I + P re-encoded on the CPU (plain path, "
+        f"{time.perf_counter() - t:.1f} s): Annex-B bytes identical")
+    return sweeps
+
+
 def phase_tree_stages(frame):
     """Where path A's time goes: one 1080p CU32 tree frame split by stage
     (decide, wavefront, deblock, SAO, pack), first timed (the card
@@ -591,22 +729,8 @@ def phase_tree_stages(frame):
     over the first PROFILE_STEPS wavefront steps."""
     from collections import Counter
 
-    from torch.utils._python_dispatch import TorchDispatchMode
     from homerhevc_tpu_torch.api import Encoder
-
-    class OpCounter(TorchDispatchMode):
-        stage = "other"
-
-        def __init__(self):
-            super().__init__()
-            self.ops = Counter()
-            self.compute = Counter()
-
-        def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
-            self.ops[self.stage] += 1
-            if not func.is_view:
-                self.compute[self.stage] += 1
-            return func(*args, **(kwargs or {}))
+    from homerhevc_tpu_torch.tools.p_frame_ops import OpCounter
 
     # the pipeline's encoder and padding (1080 lines code as 1088)
     pipe = Encoder(tree_config(W_TREE, H_TREE, 32, 1))._pipeline
@@ -683,6 +807,7 @@ def profile_window(label, fn):
     log(f"[profile] {label}: wall {wall * 1e3:.2f} ms, {len(kern)} device "
         f"kernels, device busy {dev_us / 1e3:.2f} ms "
         f"({100 * dev_us / 1e3 / (wall * 1e3):.1f}% of wall); top: {names}")
+    return len(kern), dev_us / 1e3, wall * 1e3
 
 
 def phase_profile(frames):
@@ -725,12 +850,13 @@ def main():
         f"{smi('name,power.limit,clocks.max.sm')}")
     frames = bench_frames(N_IPPP)
     phase_build()
-    rows = phase_kernel(frames)
+    rows = phase_kernel(frames, bench_frames(2, w=W_TREE, h=1152))
     phase_digests()
     launches = phase_main_path(frames)
-    tree_frames = bench_frames(F_TREE, w=W_TREE, h=H_TREE)
-    phase_tree_path(tree_frames)
+    tree_frames = bench_frames(N_PATH_C, w=W_TREE, h=H_TREE)
+    phase_tree_path(tree_frames[:F_TREE])
     sao_launches = phase_sao_ippp(frames)
+    path_c_launches = phase_path_c(tree_frames)
     phase_profile(frames)
     phase_tree_stages(tree_frames[0])
     for name in ("jax", "homerhevc_tpu"):
@@ -741,7 +867,8 @@ def main():
         "name": "coarse_sweep_sads", "route": "cuda",
         "source": "homerhevc_tpu_torch/csrc/me_sad.cu",
         "replaces": "homerhevc_tpu/ops/pallas/me_sad.py:35",
-        "launches": launches["coarse_sweep_sads"] + sao_launches,
+        "launches": (launches["coarse_sweep_sads"] + sao_launches
+                     + path_c_launches),
         "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}]}), flush=True)

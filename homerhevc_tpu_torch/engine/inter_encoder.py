@@ -1,21 +1,24 @@
-"""P-frame encoder, flat CU16 (PyTorch port of the flat path of
+"""P-frame encoder (PyTorch port of the uni-predicted program of
 homerhevc_tpu/engine/inter_encoder.py TpuInterEncoder).
 
 All CUs of a P frame are one batch (no intra-frame dependency): a
 hierarchical full-pel search (2x-decimated coarse sweep -> top-K votes ->
-shortlist + exact +-4 fine sweep at full resolution), half/quarter-pel
-refinement, luma MC + T/Q/SBH/zero-forcing, the batched merge-RD stage,
-chroma MC + residual, BS-map luma deblocking, device SAO and the compact
-wire.
-Bit-exact to the JAX program and to golden encode_inter_frame
-(merge_rd="fast").
+shortlist + exact +-4 fine sweep at full resolution, with the 4x-decimated
+FAR level when me_range > 32), half/quarter-pel refinement, luma MC +
+T/Q/SBH/zero-forcing, the batched merge-RD stage (flat CU16), chroma MC +
+residual, the CU32 / CU64 layers of the CU tree at CTU 32 / 64 (each CTB
+coded once as one CU and kept where it wins SSD + lambda * rate; FAST
+masks that by the fast-skip predicate and UFAST drops the CU64 layer),
+the intra-in-P fallback, BS-map deblocking, device SAO and the compact
+wire. Bit-exact to the JAX program and to golden encode_inter_frame
+(merge_rd="fast") / encode_inter_frame_tree.
 
 The coarse sweep runs the hand-written CUDA kernel on a CUDA device
 (ops/me_sad.py); there is no gate at the call site.
 
 Not ported yet (the pipeline refuses such configs, engine/pipeline.py
-unported): the CU32/CU64 tree, the FAR level (me_range > 32), intra-in-P,
-per-CTB QP maps and the bi-predicted program.
+unported): per-CTB QP maps (AQ, row-RC) and the bi-predicted program
+(B, GPB, multi-reference).
 """
 
 from __future__ import annotations
@@ -26,17 +29,19 @@ import torch
 from homerhevc_tpu_torch.config import EncoderConfig
 from homerhevc_tpu_torch.hevc import tables as T
 from homerhevc_tpu_torch.hevc.headers import ParamSets
-from homerhevc_tpu_torch.hevc.inter_syntax import (MERGE_FAST_BITS_BASE,
-                                                   select_inter_syntax,
-                                                   zf_multiplier)
-from homerhevc_tpu_torch.hevc.syntax import MODE_INTER, FrameDesc
+from homerhevc_tpu_torch.hevc.inter_syntax import (
+    INTRA_P_MODE_BITS_MPM, INTRA_P_MODE_BITS_REM, INTRA_P_ROUNDS,
+    MERGE_FAST_BITS_BASE, far_grid, select_inter_syntax,
+    select_inter_syntax_tree, zf_multiplier)
+from homerhevc_tpu_torch.hevc.syntax import MODE_INTER, MODE_INTRA, FrameDesc
 from homerhevc_tpu_torch.utils.profiler import PROFILER
 from homerhevc_tpu_torch.device import resolve_device
 from homerhevc_tpu_torch.engine.intra_encoder import (DevicePlane, _sh1,
                                                       _u8, _parse_cg_wire,
                                                       _unpack_cg_frame,
                                                       as_device_plane)
-from homerhevc_tpu_torch.ops.deblock import deblock_luma_bs
+from homerhevc_tpu_torch.ops import intra as dip
+from homerhevc_tpu_torch.ops.deblock import deblock_chroma_bs, deblock_luma_bs
 from homerhevc_tpu_torch.ops.interp import (LUMA_TAPS, extract_patches,
                                             mc_chroma_batch)
 from homerhevc_tpu_torch.ops.me_sad import coarse_sweep_sads
@@ -49,7 +54,6 @@ from homerhevc_tpu_torch.ops.sao_dev import (pack_params, params_nbytes,
                                              sao_lambda_x256, unpack_params)
 from homerhevc_tpu_torch.ops.transform import (forward_transform,
                                                inverse_transform)
-from homerhevc_tpu_torch.state import tables_to_torch
 
 
 def pad_edge(x: torch.Tensor, py: int, px: int) -> torch.Tensor:
@@ -64,6 +68,76 @@ def pad_edge(x: torch.Tensor, py: int, px: int) -> torch.Tensor:
 def _shift_down(x: torch.Tensor) -> torch.Tensor:
     """out[y] = x[y-1], 0 at y=0 (dim 0)."""
     return torch.cat([torch.zeros_like(x[:1]), x[:-1]], dim=0)
+
+
+def _rep(a: torch.Tensor, r: int) -> torch.Tensor:
+    """Repeat each element of the two leading axes r times."""
+    return a.repeat_interleave(r, 0).repeat_interleave(r, 1)
+
+
+def _pad_rows(a: torch.Tensor, rows: int) -> torch.Tensor:
+    """Append `rows` zero rows (dim 0)."""
+    if rows == 0:
+        return a
+    return torch.cat([a, a.new_zeros((rows,) + a.shape[1:])], dim=0)
+
+
+def _decim(p: torch.Tensor) -> torch.Tensor:
+    """2x2 rounded average of an int32 plane (odd edges dropped)."""
+    h2, w2 = (p.shape[0] // 2) * 2, (p.shape[1] // 2) * 2
+    q = p[:h2, :w2]
+    return (q[0::2, 0::2] + q[1::2, 0::2]
+            + q[0::2, 1::2] + q[1::2, 1::2] + 2) >> 2
+
+
+def _floordiv(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _top_k_votes(cost: torch.Tensor, k: int) -> torch.Tensor:
+    """Histogram over the rows of cost (n, blocks): each block votes for
+    its k cheapest rows. Duplicates add up (index_add_, not an indexed
+    +=)."""
+    cc = cost.clone()
+    dev = cc.device
+    cols = torch.arange(cc.shape[1], device=dev)
+    hist = torch.zeros(cc.shape[0], dtype=torch.int32, device=dev)
+    ones = torch.ones(cc.shape[1], dtype=torch.int32, device=dev)
+    for _ in range(k):
+        kb = cc.argmin(dim=0)
+        hist.index_add_(0, kb, ones)
+        cc[kb, cols] = 1 << 30
+    return hist
+
+
+def _take_top(hist: torch.Tensor, g: int) -> list:
+    """The g most voted entries of hist, first maximum first, as device
+    scalars (no host sync); hist is consumed."""
+    out = []
+    for _ in range(g):
+        kg = hist.argmax()
+        out.append(kg)
+        hist.index_fill_(0, kg.reshape(1), -1)
+    return out
+
+
+def _sum2x2(c: torch.Tensor) -> torch.Tensor:
+    """(2gh, 2gw) float32 -> (gh, gw) sums of 2x2 groups, added in XLA's
+    order for a reduce over the two size-2 axes, (c00 + c01) + c10 + c11:
+    the sums are not integers, so their rounding follows the order."""
+    return (c[0::2, 0::2] + c[0::2, 1::2]) + c[1::2, 0::2] + c[1::2, 1::2]
+
+
+def _blocks(p: torch.Tensor, n: int) -> torch.Tensor:
+    """(hh, ww) plane -> (hh/n * ww/n, n, n) raster-ordered blocks."""
+    hh, ww = p.shape
+    return p.reshape(hh // n, n, ww // n, n).permute(0, 2, 1, 3) \
+        .reshape(-1, n, n)
+
+
+def _unblock(b: torch.Tensor, n: int, hh: int, ww: int) -> torch.Tensor:
+    return b.reshape(hh // n, ww // n, n, n).permute(0, 2, 1, 3) \
+        .reshape(hh, ww)
 
 
 def select_intra_independent(want: torch.Tensor) -> torch.Tensor:
@@ -94,104 +168,147 @@ class TorchInterEncoder:
         self.search = search
         self.w, self.h = cfg.width, cfg.height
         assert self.w % cu == 0 and self.h % cu == 0
-        if ps.ctu_size != cu or cu != 16:
-            raise NotImplementedError("the torch P program is flat CU16")
-        if cfg.me_range > max(32, 2 * search):
-            raise NotImplementedError("the FAR ME level is not ported")
-        if cfg.intra_in_p:
-            raise NotImplementedError("intra-in-P is not ported")
+        # performance modes: FAST (>= 1) drops the merge-RD stage and masks
+        # the CU32/CU64 consolidation by the fast-skip predicate; UFAST
+        # (>= 2) also drops the CU64 layer
         self.perf = int(getattr(cfg, "performance_mode", 0))
         self.merge_rd = (bool(getattr(cfg, "merge_rd_device", True))
                          and self.perf == 0)
-        # maximum full-pel roam of any ME candidate (sets ref padding);
-        # the shortlist bands stay inside it by construction
-        self.reach = 2 * search + 2
+        # FAR (4x-decimated) level beyond the 2x sweep's +-2*search reach;
+        # reach = the maximum full-pel roam of any ME candidate (sets the
+        # reference padding): FAR centres reach +-(far+4), their +-2
+        # neighbourhoods +-(far+6)
+        self.far = cfg.me_range if cfg.me_range > max(32, 2 * search) else 0
+        self.reach = max(2 * search + 2, self.far + 8)
         self.gw, self.gh = self.w // cu, self.h // cu
+        # the CU tree: CU32 over CU16 at CTU 32 and 64; CTU 64 adds the
+        # CU64 layer (luma as four forced-split TU32s) unless UFAST
+        self.tree = ps.ctu_size in (32, 64)
+        self.tree64 = ps.ctu_size == 64 and self.perf < 2
+        if self.tree64:
+            assert self.w % 64 == 0 and self.h % 64 == 0, \
+                "the CTU-64 P program needs dimensions divisible by 64"
+        self.gw2, self.gh2 = self.w // 32, self.h // 32
+        self.gw4, self.gh4 = self.w // 64, self.h // 64
         n_tot = self.w * self.h * 3 // 2
         self.pack_C = pack_capacity(n_tot, max(0, cfg.qp - 4))
         self.cg_C = cg_cap(n_tot, max(0, cfg.qp - 4))
-        self.tab = tables_to_torch(ps, cfg, self.device, cu)
+        # the two tables the program reads (the intra encoders' layout
+        # tables would cost ~1 s per encoder at 1080p)
+        self.mvd_bits = torch.as_tensor(T.MVD_BITS, device=self.device)
+        self.rd_lambda_p = torch.as_tensor(T.RD_LAMBDA_P_TAB,
+                                           device=self.device)
         self.taps = torch.as_tensor(LUMA_TAPS, device=self.device)
+        # the +-step neighbourhoods of the sub-pel refinement
+        self.steps = {s: [torch.tensor([dx, dy], dtype=torch.int32,
+                                       device=self.device)
+                          for dy in (-s, 0, s) for dx in (-s, 0, s)]
+                      for s in (1, 2)}
+        if cfg.intra_in_p:
+            # static z-scan reference availability of the CU16 fallback
+            # grid (luma 16x16, chroma 8x8 blocks)
+            gxs = np.arange(self.w // 16)
+            gys = np.arange(self.h // 16)
+            self.if_mask = torch.as_tensor(dip.avail_masks(
+                self.w, self.h, ps.ctu_size, 16, 0, gxs[None, :] * 16,
+                gys[:, None] * 16), device=self.device)
+            self.if_mask_c = torch.as_tensor(dip.avail_masks(
+                self.w, self.h, ps.ctu_size, 8, 1, gxs[None, :] * 8,
+                gys[:, None] * 8), device=self.device)
         self.last_dev = None
 
     def _bits(self, v: torch.Tensor) -> torch.Tensor:
         """MVD rate of each component; |v| clamped to the table's end (as
         the JAX gather clamps out-of-range indices)."""
-        t = self.tab["mvd_bits"]
+        t = self.mvd_bits
         return t[torch.clamp(torch.abs(v), max=t.shape[0] - 1).long()]
+
+    def _mv_rate(self, dx, dy, pr) -> torch.Tensor:
+        return self._bits(dx - pr[0]) + self._bits(dy - pr[1])
 
     def _hier_me(self, sy, ry, lam16: int):
         """Hierarchical shortlist full-pel ME vs one reference plane
-        (golden twin: hier_pel_fields). Returns (mvs (B,2) qpel, prior)."""
+        (golden twin: hier_pel_fields). Returns (mvs (B, 2) qpel, prior,
+        mv32 (B2, 2) qpel, prior2, mv64 (B4, 2) qpel, prior4); the tree
+        levels are None when the program has no tree / no CU64 layer."""
         cu = self.cu
         gw, gh = self.gw, self.gh
         R = self.search
         dev = self.device
         side = 2 * R + 1
-        K, G16 = 3, 8
-
-        def decim(p):
-            h2, w2 = (p.shape[0] // 2) * 2, (p.shape[1] // 2) * 2
-            q = p[:h2, :w2]
-            return (q[0::2, 0::2] + q[1::2, 0::2]
-                    + q[0::2, 1::2] + q[1::2, 1::2] + 2) >> 2
+        K, G16, G32, G64 = 3, 8, 4, 2
 
         m = cu // 2
-        sd8 = decim(sy).to(torch.uint8).contiguous()      # (gh*m, gw*m)
-        rd = decim(ry)
+        sd8 = _decim(sy).to(torch.uint8).contiguous()     # (gh*m, gw*m)
+        rd = _decim(ry)
         pad_c = pad_edge(rd.to(torch.uint8), R, R).contiguous()
         # coarse sweep: the hand-written kernel on CUDA (plain on CPU)
         sads = coarse_sweep_sads(sd8, pad_c, R, m)
         n_off = side * side
         ks = torch.arange(n_off, dtype=torch.int32, device=dev)
 
-        # prior + top-K votes -> G16 global shortlist offsets
-        gq = sads.sum(dim=(1, 2), dtype=torch.int64).argmin()
-        prior = torch.stack([8 * (gq % side - R),
-                             8 * (torch.div(gq, side, rounding_mode="floor")
-                                  - R)]).to(torch.int32)
-        rate = (self._bits(8 * (ks % side - R) - prior[0])
-                + self._bits(8 * (torch.div(ks, side, rounding_mode="floor")
-                                  - R) - prior[1]))
-        cost = 4 * sads + ((lam16 * rate) >> 4)[:, None, None]
-        cc = cost.reshape(n_off, -1).clone()
-        cols = torch.arange(cc.shape[1], device=dev)
-        hist = torch.zeros(n_off, dtype=torch.int32, device=dev)
-        ones = torch.ones(cc.shape[1], dtype=torch.int32, device=dev)
-        for _ in range(K):
-            kb = cc.argmin(dim=0)
-            hist.index_add_(0, kb, ones)
-            cc[kb, cols] = 1 << 30
-        short16 = []
-        for _ in range(G16):
-            kg = hist.argmax()
-            short16.append(kg)
-            hist.index_fill_(0, kg.reshape(1), -1)
+        def prior_votes(sads_lvl, g):
+            """The prior (the offset of least total SAD) and the g offsets
+            most voted for by the blocks' K cheapest."""
+            gq = sads_lvl.sum(dim=(1, 2), dtype=torch.int64).argmin()
+            pr = torch.stack([8 * (gq % side - R),
+                              8 * (_floordiv(gq, side) - R)]).to(torch.int32)
+            rate = self._mv_rate(8 * (ks % side - R),
+                                 8 * (_floordiv(ks, side) - R), pr)
+            cost = 4 * sads_lvl + ((lam16 * rate) >> 4)[:, None, None]
+            return pr, _take_top(_top_k_votes(cost.reshape(n_off, -1), K),
+                                 g)
 
-        # offset list: exact +-4 fine sweep, then the shortlist
+        gh2, gw2 = self.gh2, self.gw2
+        prior, short16 = prior_votes(sads, G16)
+        prior2 = prior4 = None
+        short32, short64 = [], []
+        if self.tree:
+            # 32-level coarse SADs: 2x2 sums (a height that is not a
+            # multiple of 32 leaves its last CU16 row out)
+            s4c = sads[:, :gh2 * 2, :].reshape(n_off, gh2, 2, gw2, 2) \
+                .sum(dim=(2, 4), dtype=torch.int32)
+            prior2, short32 = prior_votes(s4c, G32)
+        tree64 = self.tree64 and self.gh4 > 0 and self.gw4 > 0
+        if tree64:
+            gh4, gw4 = self.gh4, self.gw4
+            s8c = s4c[:, :gh4 * 2, :gw4 * 2] \
+                .reshape(n_off, gh4, 2, gw4, 2).sum(dim=(2, 4),
+                                                    dtype=torch.int32)
+            prior4, short64 = prior_votes(s8c, G64)
+
+        # the FAR (4x-decimated) level: global candidates beyond the 2x
+        # reach (golden twin: the far block of hier_pel_fields)
+        far_centers = []                       # device (cdx, cdy) pairs
+        if self.far:
+            far_centers = self._far_centers(sd8, rd, prior, lam16, K)
+
+        # offset list: exact +-4 fine sweep, then the shortlist and FAR
         # neighbourhoods (golden order: argmin first-min == the golden
         # sequential strict-< scan)
         Fr = 4
         nf = 2 * Fr + 1
         fine_k = torch.arange(nf * nf, dtype=torch.int32, device=dev)
         all_dx = [fine_k % nf - Fr]
-        all_dy = [torch.div(fine_k, nf, rounding_mode="floor") - Fr]
+        all_dy = [_floordiv(fine_k, nf) - Fr]
         go = torch.arange(25, dtype=torch.int32, device=dev)
         grid_dx = go % 5 - 2
-        grid_dy = torch.div(go, 5, rounding_mode="floor") - 2
+        grid_dy = _floordiv(go, 5) - 2
         centers = []
-        for kg in short16:
-            cdx = (2 * (kg % side - R)).to(torch.int32)
-            cdy = (2 * (torch.div(kg, side, rounding_mode="floor")
-                        - R)).to(torch.int32)
-            centers.append((cdx, cdy))
+        for kg in short16 + short32 + short64:
+            centers.append(((2 * (kg % side - R)).to(torch.int32),
+                            (2 * (_floordiv(kg, side) - R)).to(torch.int32)))
+        centers += far_centers
+        for cdx, cdy in centers:
             all_dx.append(cdx + grid_dx)
             all_dy.append(cdy + grid_dy)
         all_dx = torch.cat(all_dx)
         all_dy = torch.cat(all_dy)
         n_offs_r = all_dx.shape[0]
         P = self.reach
-        assert P >= 2 * R + 2      # shortlist bands lie inside the padding
+        # every band lies inside the padding: shortlist centres roam
+        # +-2R, FAR centres +-(4 * far // 4 + 4), each with +-2 around
+        assert P >= 2 * R + 2 and P >= 4 * (self.far // 4) + 6
         pad8F = pad_edge(ry.to(torch.uint8), P, P)
         sy16 = sy.to(torch.int16)
 
@@ -217,18 +334,94 @@ class TorchInterEncoder:
                     sads_list.append(bsum16(d.to(torch.int32)))
         sads_r = torch.stack(sads_list)                   # (n_offs_r, gh, gw)
 
-        rate = (self._bits(4 * all_dx - prior[0])
-                + self._bits(4 * all_dy - prior[1]))
-        cost = sads_r.reshape(n_offs_r, -1) + ((lam16 * rate) >> 4)[:, None]
-        bi = cost.argmin(dim=0)
-        mvs = torch.stack([all_dx[bi], all_dy[bi]], dim=-1) * 4
-        return mvs, prior
+        def level_best(sads_lvl, pr):
+            rate = self._mv_rate(4 * all_dx, 4 * all_dy, pr)
+            cost = sads_lvl.reshape(n_offs_r, -1) \
+                + ((lam16 * rate) >> 4)[:, None]
+            bi = cost.argmin(dim=0)
+            return torch.stack([all_dx[bi], all_dy[bi]], dim=-1) * 4
+
+        mvs = level_best(sads_r, prior)
+        mv32 = mv64 = None
+        if self.tree:
+            s32r = sads_r[:, :gh2 * 2, :] \
+                .reshape(n_offs_r, gh2, 2, gw2, 2).sum(dim=(2, 4),
+                                                       dtype=torch.int32)
+            mv32 = level_best(s32r, prior2)
+            if tree64:
+                s64r = s32r[:, :self.gh4 * 2, :self.gw4 * 2] \
+                    .reshape(n_offs_r, self.gh4, 2, self.gw4, 2) \
+                    .sum(dim=(2, 4), dtype=torch.int32)
+                mv64 = level_best(s64r, prior4)
+        return mvs, prior, mv32, prior2, mv64, prior4
+
+    def _far_centers(self, sd8, rd, prior, lam16: int, K: int):
+        """The FAR level of _hier_me: a dense 4x-decimated sweep over
+        +-far x +-min(far, 64) full-pel, votes of the offsets the 2x sweep
+        does not cover, and a 2x-level +-2 refine of the GQ most voted by
+        global decimated SAD. Returns GQ device (cdx, cdy) full-pel
+        centres."""
+        dev = self.device
+        GQ = 4
+        grid, vote_mask = far_grid(self.search, self.far)
+        xq, yq = self.far // 4, min(self.far // 4, 16)
+        sd4 = _decim(sd8.to(torch.int32))
+        rd4 = _decim(rd)
+        m4 = 4
+        gh4x, gw4x = sd4.shape[0] // m4, sd4.shape[1] // m4
+        h4, w4 = gh4x * m4, gw4x * m4
+        sd4 = sd4[:h4, :w4].to(torch.int16)
+        pad_q = pad_edge(rd4.to(torch.uint8), yq, xq)
+        # grid order: qy major, qx minor; one row band per qy, its 2xq+1
+        # column shifts as windows of the band
+        sq_rows = []
+        for qy in range(-yq, yq + 1):
+            band = pad_q[yq + qy:yq + qy + h4].to(torch.int16)
+            win = band.unfold(1, w4, 1)[:, :2 * xq + 1]   # (h4, nqx, w4)
+            d = torch.abs(sd4[:, None, :] - win).to(torch.int32)
+            sq_rows.append(d.reshape(gh4x, m4, 2 * xq + 1, gw4x, m4)
+                           .sum(dim=(1, 4), dtype=torch.int32)
+                           .permute(1, 0, 2))           # (nqx, gh4x, gw4x)
+        sads_q = torch.cat(sq_rows)                     # (len(grid), ...)
+        qxs = torch.as_tensor([q[0] for q in grid], dtype=torch.int32,
+                              device=dev)
+        qys = torch.as_tensor([q[1] for q in grid], dtype=torch.int32,
+                              device=dev)
+        rate_q = self._mv_rate(16 * qxs, 16 * qys, prior)
+        cost_q = 16 * sads_q + ((lam16 * rate_q) >> 4)[:, None, None]
+        # the offsets the 2x sweep covers never vote
+        cq = torch.where(torch.as_tensor(vote_mask, device=dev)[:, None],
+                         cost_q.reshape(len(grid), -1), 1 << 30)
+        hist_q = _top_k_votes(cq, K)
+        # 2x-level +-2 refine of each candidate by GLOBAL decimated SAD;
+        # the bands start at py2 + 2qy + oy >= 0 and end inside the plane
+        py2, px2 = 2 * yq + 2, 2 * xq + 2
+        pad_c2 = pad_edge(rd.to(torch.uint8), py2, px2)
+        h2c, w2c = sd8.shape
+        sdi = sd8.to(torch.int16)
+        ar_h = torch.arange(h2c, device=dev)
+        ar_w = torch.arange(w2c + 4, device=dev)
+        centers = []
+        for kq in _take_top(hist_q, GQ):
+            qx, qy = qxs[kq], qys[kq]
+            cols_b = px2 + 2 * qx - 2 + ar_w
+            gsum = []
+            for oy in (-2, -1, 0, 1, 2):
+                band = pad_c2.index_select(0, py2 + 2 * qy + oy + ar_h) \
+                    .index_select(1, cols_b).to(torch.int16)
+                win = band.unfold(1, w2c, 1)                # (h2c, 5, w2c)
+                gsum.append(torch.abs(sdi[:, None, :] - win)
+                            .to(torch.int32).sum(dim=(0, 2),
+                                                 dtype=torch.int32))
+            gbest = torch.cat(gsum).argmin().to(torch.int32)
+            centers.append((4 * qx + 2 * (gbest % 5 - 2),
+                            4 * qy + 2 * (_floordiv(gbest, 5) - 2)))
+        return centers
 
     # ---- device program -----------------------------------------------------
 
     def _impl(self, src_y, src_u, src_v, ref_y, ref_u, ref_v, zf_mult,
               qp: int):
-        tab = self.tab
         cu, cuc = self.cu, self.cu // 2
         gw, gh = self.gw, self.gh
         dev = self.device
@@ -241,7 +434,7 @@ class TorchInterEncoder:
         qp_c = int(T.CHROMA_QP_MAP[min(max(qp + self.ps.cb_qp_offset, 0),
                                        57)])
         lam16 = int(T.LAMBDA_ME_X16_TAB[qp])
-        mvs, prior = self._hier_me(sy, ry, lam16)
+        mvs, prior, mv32, prior2, mv64, prior4 = self._hier_me(sy, ry, lam16)
 
         # ---- sub-pel refinement (half then quarter) over one (n+8)^2
         # patch per block, all 16 quarter-pel phases interpolated ----
@@ -252,8 +445,7 @@ class TorchInterEncoder:
         bidx = torch.arange(B, device=dev, dtype=torch.int32)
         x0s = (bidx % gw) * cu
         y0s = torch.div(bidx, gw, rounding_mode="floor") * cu
-        src_blk = sy.reshape(gh, cu, gw, cu).permute(0, 2, 1, 3) \
-            .reshape(B, cu, cu)
+        src_blk = _blocks(sy, cu)
         me_prec = int(self.cfg.motion_estimation_precision)
         ar_b = torch.arange(B, device=dev)
 
@@ -287,26 +479,28 @@ class TorchInterEncoder:
             bc = torch.full((mv_cur.shape[0],), 1 << 30, dtype=torch.int32,
                             device=dev)
             bmv = mv_cur
-            for dy in (-step, 0, step):
-                for dx in (-step, 0, step):
-                    cand = mv_cur + torch.tensor([dx, dy], dtype=torch.int32,
-                                                 device=dev)
-                    p = mc_v16(v16, ix0, iy0, cand, nb)
-                    sad = torch.abs(src_b - p).sum(dim=(-1, -2),
-                                                   dtype=torch.int32)
-                    rt = (self._bits(cand[:, 0] - pr[0])
-                          + self._bits(cand[:, 1] - pr[1]))
-                    cost = sad + ((lam16 * rt) >> 4)
-                    better = cost < bc
-                    bc = torch.where(better, cost, bc)
-                    bmv = torch.where(better[:, None], cand, bmv)
+            for off in self.steps[step]:
+                cand = mv_cur + off
+                p = mc_v16(v16, ix0, iy0, cand, nb)
+                sad = torch.abs(src_b - p).sum(dim=(-1, -2),
+                                               dtype=torch.int32)
+                rt = self._mv_rate(cand[:, 0], cand[:, 1], pr)
+                cost = sad + ((lam16 * rt) >> 4)
+                better = cost < bc
+                bc = torch.where(better, cost, bc)
+                bmv = torch.where(better[:, None], cand, bmv)
             return bmv
 
-        v16, ix0, iy0 = make_v16(x0s, y0s, mvs, cu)
-        if me_prec >= 1:
-            mvs = refine_with(v16, ix0, iy0, src_blk, cu, mvs, 2, prior)
-        if me_prec >= 2:
-            mvs = refine_with(v16, ix0, iy0, src_blk, cu, mvs, 1, prior)
+        def subpel(x0v, y0v, src_b, mv0, n, pr):
+            """Half- then quarter-pel refinement and the prediction at the
+            refined MV."""
+            v16, ix0, iy0 = make_v16(x0v, y0v, mv0, n)
+            mv = mv0
+            if me_prec >= 1:
+                mv = refine_with(v16, ix0, iy0, src_b, n, mv, 2, pr)
+            if me_prec >= 2:
+                mv = refine_with(v16, ix0, iy0, src_b, n, mv, 1, pr)
+            return mv, mc_v16(v16, ix0, iy0, mv, n)
 
         def code(resid, n, q):
             coef = forward_transform(resid, False)
@@ -322,24 +516,36 @@ class TorchInterEncoder:
                                torch.clamp(pred + rres, 0, 255), pred)
 
         # ---- luma MC + residual ----
-        pred = mc_v16(v16, ix0, iy0, mvs, cu)
+        mvs, pred = subpel(x0s, y0s, src_blk, mvs, cu, prior)
         resid = src_blk - pred
         lvl, rres = code(resid, cu, qp)
         rec = recon(pred, lvl, rres)
 
-        lam = tab["rd_lambda_p"][qp]                      # float32 scalar
+        lam = self.rd_lambda_p[qp]                        # float32 scalar
 
         def model_cost(src_b, rec_b, lvl_b, bits_b):
-            dd = (src_b - rec_b).to(torch.float32)
-            ssd = (dd * dd).sum(dim=(-1, -2))
+            """ssd + lam * (3 nnz + sum|l| + bits), float32. The SSD is
+            summed exactly as int32, then rounded once: equal to JAX's
+            float32 sum wherever that is exact (below 2^24, always for a
+            16x16 block), rounded once where JAX rounds each partial sum
+            above 2^24, and the same on every device."""
+            dd = src_b - rec_b
+            ssd = (dd * dd).sum(dim=(-1, -2), dtype=torch.int32) \
+                .to(torch.float32)
             nnzf = (lvl_b != 0).sum(dim=(-1, -2)).to(torch.float32)
             lsum = torch.abs(lvl_b).sum(dim=(-1, -2)).to(torch.float32)
             return ssd + lam * (3.0 * nnzf + lsum + bits_b)
 
+        def cu_cost(src_b, rec_b, lvl_b, mv_b, pr):
+            """The CU cost with a 6-bin overhead and the MV's rate against
+            the prior pr (CU_AMVP_BITS == 6.0)."""
+            rt = self._mv_rate(mv_b[:, 0], mv_b[:, 1], pr).to(torch.float32)
+            return model_cost(src_b, rec_b, lvl_b, 6.0 + rt)
+
         # ---- batched merge-RD (golden twin: merge_rd_fast): the first two
         # spec merge candidates from the pre-pass field, re-coded and
         # model-costed; a king-independent improving subset flips ----
-        if self.merge_rd:
+        if (not self.tree) and self.merge_rd:
             mvg = mvs.reshape(gh, gw, 2)
             pad_m = torch.zeros((gh + 2, gw + 2, 2), dtype=mvs.dtype,
                                 device=dev)
@@ -371,10 +577,7 @@ class TorchInterEncoder:
                     sel_c = torch.where((order[s] == c + 1)[..., None],
                                         mvs_k[s], sel_c)
                 cand.append(sel_c.reshape(-1, 2))
-            rt = (self._bits(mvs[:, 0] - prior[0])
-                  + self._bits(mvs[:, 1] - prior[1])).to(torch.float32)
-            # CU_AMVP_BITS == the 6.0 CU-overhead constant
-            cur_cost = model_cost(src_blk, rec, lvl, 6.0 + rt)
+            cur_cost = cu_cost(src_blk, rec, lvl, mvs, prior)
             best_cost = torch.full((B,), float("inf"), dtype=torch.float32,
                                    device=dev)
             best_lvl, best_rec, best_mv = lvl, rec, mvs
@@ -408,58 +611,316 @@ class TorchInterEncoder:
         # ---- chroma MC + residual (after merge-RD so flipped CUs' chroma
         # codes at the final MV) ----
         padC = self.reach // 2 + 4    # full-pel chroma reach + filter taps
-        cx0s, cy0s = x0s // 2, y0s // 2
+        ref_padU = pad_edge(ref_u.to(torch.int32), padC, padC)
+        ref_padV = pad_edge(ref_v.to(torch.int32), padC, padC)
 
-        def chroma(src_c, ref_c):
-            ref_padC = pad_edge(ref_c.to(torch.int32), padC, padC)
-            predc = mc_chroma_batch(ref_padC, padC, cx0s, cy0s, cuc, mvs)
-            src_cb = src_c.reshape(gh, cuc, gw, cuc).permute(0, 2, 1, 3) \
-                .reshape(B, cuc, cuc)
-            lvlc, rrc = code(src_cb - predc, cuc, qp_c)
-            return lvlc, recon(predc, lvlc, rrc)
+        def chroma(src_c, ref_padc, x0v, y0v, n, mv, rows):
+            """Chroma MC + residual of the n x n chroma blocks at luma
+            origins (x0v, y0v), coded as TUs of at most 16: (levels,
+            recon), (B, n, n) each."""
+            predc = mc_chroma_batch(ref_padc, padC, x0v // 2, y0v // 2, n,
+                                    mv)
+            src_cb = _blocks(src_c[:rows], n)
+            resc = src_cb - predc
+            if n <= 16:
+                lvlc, rrc = code(resc, n, qp_c)
+                return lvlc, recon(predc, lvlc, rrc)
+            # CU64: four 16x16 TUs over the 32x32 chroma block
+            lvlc, rrc = code(_quarters(resc, 16), 16, qp_c)
+            return (_full(lvlc, 16),
+                    torch.clamp(predc + _full(rrc, 16), 0, 255))
 
-        lvl_u, rec_u = chroma(su, ref_u)
-        lvl_v, rec_v = chroma(sv, ref_v)
-
-        def unblock(blocks, n, hh, ww):
-            return blocks.reshape(hh // n, ww // n, n, n) \
-                .permute(0, 2, 1, 3).reshape(hh, ww)
         hc, wc = self.h // 2, self.w // 2
-        recon_y = unblock(rec, cu, self.h, self.w)
-        recon_u = unblock(rec_u, cuc, hc, wc)
-        recon_v = unblock(rec_v, cuc, hc, wc)
-        ly = unblock(lvl.to(torch.int16), cu, self.h, self.w)
-        lu = unblock(lvl_u.to(torch.int16), cuc, hc, wc)
-        lv = unblock(lvl_v.to(torch.int16), cuc, hc, wc)
-        mvs16 = mvs.reshape(gh, gw, 2).to(torch.int16)
+        lvl_u, rec_u = chroma(su, ref_padU, x0s, y0s, cuc, mvs, hc)
+        lvl_v, rec_v = chroma(sv, ref_padV, x0s, y0s, cuc, mvs, hc)
+        recon_y = _unblock(rec, cu, self.h, self.w)
+        recon_u = _unblock(rec_u, cuc, hc, wc)
+        recon_v = _unblock(rec_v, cuc, hc, wc)
+        ly = _unblock(lvl.to(torch.int16), cu, self.h, self.w)
+        lu = _unblock(lvl_u.to(torch.int16), cuc, hc, wc)
+        lv = _unblock(lvl_v.to(torch.int16), cuc, hc, wc)
+        extra = [mvs.reshape(gh, gw, 2).to(torch.int16)]
+        planes = [recon_y, recon_u, recon_v, ly, lu, lv]
+        # deblocking maps on the 8-grid: nonzero TU, MV, TU size
+        nz8 = _rep(nz.reshape(gh, gw), 2)
+        mv8 = _rep(mvs.reshape(gh, gw, 2), 2)
+        ts8 = 16
+        excl16 = None
+
+        if not self.tree:
+            c16 = None
+            if self.cfg.intra_in_p:
+                c16 = cu_cost(src_blk, rec, lvl, mvs, prior).reshape(gh, gw)
+        else:
+            # ---- CU32 layer: code each full CTB32 as one CU32, keep
+            # whichever side wins SSD + lambda * rate (golden
+            # encode_inter_frame_tree twin); mv32 / prior2 come from the
+            # shared 16/32 shortlist search ----
+            gh2, gw2 = self.gh2, self.gw2
+            B2 = gh2 * gw2
+            b2 = torch.arange(B2, device=dev, dtype=torch.int32)
+            x0s2 = (b2 % gw2) * 32
+            y0s2 = torch.div(b2, gw2, rounding_mode="floor") * 32
+            src32 = _blocks(sy[:gh2 * 32], 32)
+            mv32, pred32 = subpel(x0s2, y0s2, src32, mv32, 32, prior2)
+            lvl32, rres32 = code(src32 - pred32, 32, qp)
+            nz32 = (lvl32 != 0).any(dim=-1).any(dim=-1)
+            rec32 = recon(pred32, lvl32, rres32)
+            c32 = cu_cost(src32, rec32, lvl32, mv32, prior2) \
+                .reshape(gh2, gw2)
+            c16 = cu_cost(src_blk, rec, lvl, mvs, prior2).reshape(gh, gw)
+            c16p = _sum2x2(c16[:gh2 * 2])
+            choose = c32 <= c16p                           # (gh2, gw2)
+            mv16g = mvs.reshape(gh, gw, 2)
+            if self.perf >= 1:
+                # fast-skip consolidation (golden mv_spread16 twin): a
+                # merged CU whose sub-CU motion disagrees by > 16 qpel
+                # never wins
+                choose = choose & (self._spread(mv16g[:gh2 * 2], 2) <= 16)
+            lvl_u32, rec_u32 = chroma(su, ref_padU, x0s2, y0s2, 16, mv32,
+                                      gh2 * 16)
+            lvl_v32, rec_v32 = chroma(sv, ref_padV, x0s2, y0s2, 16, mv32,
+                                      gh2 * 16)
+
+            def combine(plane16, blocks32, m):
+                """Overwrite the top gh2*m rows of plane16 with blocks32
+                where the CTB32 was chosen as one CU."""
+                p32 = _unblock(blocks32.to(plane16.dtype), m, gh2 * m,
+                               gw2 * m)
+                top = torch.where(_rep(choose, m), p32, plane16[:gh2 * m])
+                return torch.cat([top, plane16[gh2 * m:]], dim=0)
+
+            planes = [combine(p, b, m) for p, b, m in zip(
+                planes, (rec32, rec_u32, rec_v32, lvl32, lvl_u32, lvl_v32),
+                (32, 16, 16, 32, 16, 16))]
+            extra += [choose.to(torch.uint8),
+                      mv32.reshape(gh2, gw2, 2).to(torch.int16)]
+            # the deblocking maps of the adopted CU32s (their TU is 32)
+            pad_rows = self.h // 8 - gh2 * 4
+            chf = _pad_rows(_rep(choose, 4), pad_rows)
+            nz8 = torch.where(chf, _pad_rows(_rep(nz32.reshape(gh2, gw2), 4),
+                                             pad_rows), nz8)
+            mv8 = torch.where(chf[..., None],
+                              _pad_rows(_rep(mv32.reshape(gh2, gw2, 2), 4),
+                                        pad_rows), mv8)
+            ts8 = torch.where(chf, 32, 16)
+            ch16 = _rep(choose, 2)
+
+            if self.tree64:
+                # ---- CU64 layer (CTB64): one CU64 per CTB, luma as four
+                # forced-split TU32s (golden twin: encode_inter_frame_tree
+                # want64); its refine reads prior2, as the reference
+                # does ----
+                gh4, gw4 = self.gh4, self.gw4
+                B4 = gh4 * gw4
+                b4 = torch.arange(B4, device=dev, dtype=torch.int32)
+                x0s4 = (b4 % gw4) * 64
+                y0s4 = torch.div(b4, gw4, rounding_mode="floor") * 64
+                src64 = _blocks(sy, 64)
+                mv64, pred64 = subpel(x0s4, y0s4, src64, mv64, 64, prior2)
+                lvl64q, rr64q = code(_quarters(src64 - pred64, 32), 32, qp)
+                nz64q = (lvl64q != 0).any(dim=-1).any(dim=-1)  # (B4*4,)
+                lvl64 = _full(lvl64q, 32)
+                rec64 = torch.clamp(pred64 + _full(rr64q, 32), 0, 255)
+                c64 = cu_cost(src64, rec64, lvl64, mv64, prior2) \
+                    .reshape(gh4, gw4)
+                # the adopted region's cost after the CU32 pass
+                r32 = torch.where(choose, c32, c16p)
+                choose64 = c64 <= _sum2x2(r32[:gh4 * 2, :gw4 * 2])
+                if self.perf >= 1:
+                    # fast-skip over the motion field after the CU32
+                    # adoption (golden reads desc.mv after the CU32 pass)
+                    mv16p = torch.where(
+                        ch16[..., None], _rep(mv32.reshape(gh2, gw2, 2), 2),
+                        mv16g[:gh2 * 2])
+                    choose64 = choose64 & (
+                        self._spread(mv16p[:gh4 * 4, :gw4 * 4], 4) <= 16)
+                lvl_u64, rec_u64 = chroma(su, ref_padU, x0s4, y0s4, 32,
+                                          mv64, hc)
+                lvl_v64, rec_v64 = chroma(sv, ref_padV, x0s4, y0s4, 32,
+                                          mv64, hc)
+
+                def combine64(plane, blocks, m):
+                    p64 = _unblock(blocks.to(plane.dtype), m, gh4 * m,
+                                   gw4 * m)
+                    return torch.where(_rep(choose64, m), p64, plane)
+
+                planes = [combine64(p, b, m) for p, b, m in zip(
+                    planes, (rec64, rec_u64, rec_v64, lvl64, lvl_u64,
+                             lvl_v64), (64, 32, 32, 64, 32, 32))]
+                extra += [choose64.to(torch.uint8),
+                          mv64.reshape(gh4, gw4, 2).to(torch.int16)]
+                ch8_64 = _rep(choose64, 8)
+                # per-TU32 nonzero map on the 8-grid; CU64 luma TUs are
+                # the four forced-split TU32s
+                nzq8 = _rep(nz64q.reshape(gh4, gw4, 2, 2).permute(0, 2, 1, 3)
+                            .reshape(gh4 * 2, gw4 * 2), 4)
+                nz8 = torch.where(ch8_64, nzq8, nz8)
+                mv8 = torch.where(ch8_64[..., None],
+                                  _rep(mv64.reshape(gh4, gw4, 2), 8), mv8)
+                ts8 = torch.where(ch8_64, 32, ts8)
+                ch16 = ch16 | _rep(choose64, 4)[:ch16.shape[0],
+                                                :ch16.shape[1]]
+            # CU16 cells covered by an adopted CU32 / CU64 are excluded
+            # from the intra fallback (golden skips consolidated nodes)
+            excl16 = _pad_rows(ch16, gh - ch16.shape[0])
+
+        recon_y, recon_u, recon_v, ly, lu, lv = planes
+        intra8 = None
+        if self.cfg.intra_in_p:
+            (recon_y, recon_u, recon_v, ly, lu, lv, intra16,
+             imode16) = self._intra_fallback(
+                sy, su, sv, recon_y, recon_u, recon_v, ly, lu, lv, qp,
+                qp_c, c16, lam, excl16)
+            extra += [intra16.to(torch.uint8), imode16.to(torch.uint8)]
+            intra8 = _rep(intra16, 2)
         if self.ps.deblocking_enabled:
-            nz8 = nz.reshape(gh, gw).repeat_interleave(2, 0) \
-                .repeat_interleave(2, 1)
-            mv8 = mvs.reshape(gh, gw, 2).repeat_interleave(2, 0) \
-                .repeat_interleave(2, 1)
-            recon_y = self._deblock_inter(recon_y, nz8, mv8, qp)
-        extra = [mvs16]
+            recon_y = self._deblock_inter(recon_y, nz8, mv8, qp, ts8, intra8)
+            if intra8 is not None:
+                recon_u, recon_v = self._deblock_chroma_intra(
+                    recon_u, recon_v, intra8, qp)
         if self.ps.sao_enabled:
             recon_y, recon_u, recon_v, sao_p = self._sao(
                 sy, su, sv, recon_y, recon_u, recon_v, qp)
             extra.append(sao_p)
         return self._wire(recon_y, recon_u, recon_v, sy, extra, ly, lu, lv)
 
-    def _deblock_inter(self, plane_y, nz8, mv8, qp):
-        """BS maps (spec 8.7.2.4: nz or mv mismatch -> 1 on the TU16 grid)
-        + device luma deblock. Chroma is untouched at BS<2 (8.7.2.5.5)."""
+    @staticmethod
+    def _spread(g: torch.Tensor, r: int) -> torch.Tensor:
+        """Largest spread (max - min, over both components) of the MVs of
+        each r x r group of the CU16 motion field g (r*gh, r*gw, 2)."""
+        gh, gw = g.shape[0] // r, g.shape[1] // r
+        g = g.reshape(gh, r, gw, r, 2)
+        return (g.amax(dim=(1, 3)) - g.amin(dim=(1, 3))).amax(dim=-1)
+
+    def _intra_fallback(self, sy, su, sv, ry, ru, rv, ly, lu, lv, qp: int,
+                        qp_c: int, cost_p, lam, excl16):
+        """Device twin of golden intra_fallback_p: INTRA_P_ROUNDS batched
+        rounds of {35-mode search from the current recon -> TU16 RD ->
+        king-graph independent-set commit}. Returns the updated planes and
+        levels, and the committed (gh, gw) intra mask and mode map."""
+        dev = self.device
+        gh, gw = self.h // 16, self.w // 16
+        B = gh * gw
+        hc, wc = self.h // 2, self.w // 2
+        sl = self.ps.scaling_list_enabled
+        sbh = self.ps.sign_hiding
+        bits_mpm, bits_rem = T.intra_mode_bits(qp)
+        # independence => every intra CU's neighbours are inter, so the
+        # decoder-side MPM list is the constant mpm_candidates(DC, DC)
+        in_mpm = np.isin(np.arange(35), (0, 1, 26))
+        mode_sad_bits = torch.as_tensor(
+            np.where(in_mpm, bits_mpm, bits_rem).astype(np.int32),
+            device=dev)
+        mb_f = torch.as_tensor(
+            np.where(in_mpm, INTRA_P_MODE_BITS_MPM, INTRA_P_MODE_BITS_REM)
+            .astype(np.float32), device=dev)
+        mask65 = self.if_mask.reshape(B, 65)
+        mask33 = self.if_mask_c.reshape(B, 33)
+        src16 = _blocks(sy, 16)
+        srcu = _blocks(su, 8)
+        srcv = _blocks(sv, 8)
+        ar = torch.arange(B, device=dev)
+        is_intra = torch.zeros((gh, gw), dtype=torch.bool, device=dev)
+        mode16 = torch.zeros((gh, gw), dtype=torch.int32, device=dev)
+
+        def code_intra(resid, n, q):
+            coef = forward_transform(resid, False)
+            lvl = quantize(coef, n, q, True, sl)
+            if sbh:
+                lvl = sign_bit_hiding(lvl, coef, n, q, True, 0, sl)
+            rres = inverse_transform(dequantize(lvl, n, q, True, sl), False)
+            return lvl, rres
+
+        for _ in range(INTRA_P_ROUNDS):
+            # X may not be a reference of a committed intra CU (committed
+            # at X's E, SE, S, SW or NE neighbour blocks X)
+            p = torch.zeros((gh + 2, gw + 2), dtype=torch.bool, device=dev)
+            p[1:-1, 1:-1] = is_intra
+            blocked = (p[1:-1, 2:] | p[2:, 2:] | p[2:, 1:-1]
+                       | p[2:, :-2] | p[:-2, 2:])
+            seq = dip.substitute_refs(
+                dip.gather_ref_seq(ry, 16).reshape(B, 65), mask65)
+            top, left = dip.seq_to_refs(seq, 16)
+            preds = dip.edge_fixes(dip.predict_all_modes(top, left, 16, True),
+                                   top, left, 16, True)
+            sad = torch.abs(src16[:, None] - preds).sum(dim=(-1, -2),
+                                                        dtype=torch.int32)
+            mode = (sad + mode_sad_bits[None, :]).argmin(dim=-1)
+            pred = preds[ar, mode]
+            lvl, rres = code_intra(src16 - pred, 16, qp)
+            nz = (lvl != 0).any(dim=-1).any(dim=-1)
+            rec = torch.where(nz[:, None, None],
+                              torch.clamp(pred + rres, 0, 255), pred)
+            d = src16 - rec
+            ssd = (d * d).sum(dim=(-1, -2), dtype=torch.int32) \
+                .to(torch.float32)
+            nnzf = (lvl != 0).sum(dim=(-1, -2)).to(torch.float32)
+            lsum = torch.abs(lvl).sum(dim=(-1, -2)).to(torch.float32)
+            cost_i = ssd + lam * (3.0 * nnzf + lsum + 6.0 + mb_f[mode])
+            want = (cost_i.reshape(gh, gw) < cost_p) & ~is_intra & ~blocked
+            if excl16 is not None:
+                want = want & ~excl16
+            sel = select_intra_independent(want)
+            is_intra = is_intra | sel
+            mode16 = torch.where(sel, mode.reshape(gh, gw).to(torch.int32),
+                                 mode16)
+            selrep = _rep(sel, 16)
+            ry = torch.where(selrep, _unblock(rec, 16, self.h, self.w), ry)
+            ly = torch.where(selrep, _unblock(lvl.to(torch.int16), 16,
+                                              self.h, self.w), ly)
+            selrep_c = _rep(sel, 8)
+            outc = []
+            for plane, srcc, lev in ((ru, srcu, lu), (rv, srcv, lv)):
+                cseq = dip.substitute_refs(
+                    dip.gather_ref_seq(plane, 8).reshape(B, 33), mask33)
+                ctop, cleft = dip.seq_to_refs(cseq, 8)
+                cpred = dip.predict_mode(ctop, cleft, 8, mode, False)
+                clvl, crr = code_intra(srcc - cpred, 8, qp_c)
+                cnz = (clvl != 0).any(dim=-1).any(dim=-1)
+                crec = torch.where(cnz[:, None, None],
+                                   torch.clamp(cpred + crr, 0, 255), cpred)
+                plane = torch.where(selrep_c, _unblock(crec, 8, hc, wc),
+                                    plane)
+                lev = torch.where(selrep_c, _unblock(clvl.to(torch.int16), 8,
+                                                     hc, wc), lev)
+                outc.append((plane, lev))
+            (ru, lu), (rv, lv) = outc
+        return ry, ru, rv, ly, lu, lv, is_intra, mode16
+
+    def _deblock_inter(self, plane_y, nz8, mv8, qp, ts8=16, intra8=None):
+        """BS maps (spec 8.7.2.4) + device luma deblock: either side intra
+        (intra-fallback CUs) -> BS 2; else a nonzero TU or an MV mismatch
+        on a TU edge -> 1. Chroma is untouched at BS < 2 (8.7.2.5.5); the
+        BS-2 chroma pass runs separately when intra CUs are present."""
         h8, w8 = nz8.shape
         dev = self.device
         ux = torch.arange(w8, device=dev)[None, :]
         uy = torch.arange(h8, device=dev)[:, None]
-        ts8 = 16
         vv = (ux > 0) & (((ux * 8) % ts8) == 0)
         vh = (uy > 0) & (((uy * 8) % ts8) == 0)
         dl = (torch.abs(mv8 - _sh1(mv8)) >= 4).any(dim=-1)
         dt = (torch.abs(mv8 - _shift_down(mv8)) >= 4).any(dim=-1)
         bs_v = (vv & (nz8 | _sh1(nz8) | dl)).to(torch.int32)
         bs_h = (vh & (nz8 | _shift_down(nz8) | dt)).to(torch.int32)
+        if intra8 is not None:
+            bs_v = torch.where(vv & (intra8 | _sh1(intra8)), 2, bs_v)
+            bs_h = torch.where(vh & (intra8 | _shift_down(intra8)), 2, bs_h)
         return deblock_luma_bs(plane_y, bs_v, bs_h, qp)
+
+    def _deblock_chroma_intra(self, ru, rv, intra8, qp):
+        """BS-2 chroma pass over the edges of intra-fallback CUs (the
+        chroma 8-grid is the even luma 8-units)."""
+        h8, w8 = intra8.shape
+        dev = self.device
+        ux = torch.arange(w8, device=dev)[None, :]
+        uy = torch.arange(h8, device=dev)[:, None]
+        bs2_v = (ux > 0) & ((ux & 1) == 0) & (intra8 | _sh1(intra8))
+        bs2_h = (uy > 0) & ((uy & 1) == 0) & (intra8 | _shift_down(intra8))
+        return (deblock_chroma_bs(ru, bs2_v, bs2_h, qp,
+                                  self.ps.cb_qp_offset),
+                deblock_chroma_bs(rv, bs2_v, bs2_h, qp,
+                                  self.ps.cr_qp_offset))
 
     def _sao(self, sy, su, sv, recon_y, recon_u, recon_v, qp: int):
         """Device SAO decide + apply (ops/sao_dev.py): the filtered planes
@@ -491,11 +952,13 @@ class TorchInterEncoder:
     def _zero_force(self, resid, lvl, rres, zf_mult):
         """Reference-parity residual zero-forcing (hmr_motion_inter.c:106):
         per TU, drop the coded block when
-        ssd_zero <= ssd_coded + zf_mult * sum|lvl| (float32, as golden)."""
-        r = resid.to(torch.float32)
-        ssd_zero = (r * r).sum(dim=(-1, -2))
-        dc = (resid - rres).to(torch.float32)
-        ssd_coded = (dc * dc).sum(dim=(-1, -2))
+        ssd_zero <= ssd_coded + zf_mult * sum|lvl| (float32, as golden;
+        the SSDs summed exactly, then rounded once)."""
+        ssd_zero = (resid * resid).sum(dim=(-1, -2), dtype=torch.int32) \
+            .to(torch.float32)
+        dc = resid - rres
+        ssd_coded = (dc * dc).sum(dim=(-1, -2), dtype=torch.int32) \
+            .to(torch.float32)
         lsum = torch.abs(lvl).sum(dim=(-1, -2)).to(torch.float32)
         drop = ssd_zero <= ssd_coded + zf_mult * lsum
         lvl = torch.where(drop[:, None, None], 0, lvl)
@@ -520,22 +983,44 @@ class TorchInterEncoder:
 
     def fetch(self, out):
         """Download one dispatched frame's wire buffer and build the
-        FrameDesc (host half of encode_frame); recon stays on the device."""
+        FrameDesc (host half of encode_frame); recon stays on the device.
+        The meta is read in the JAX order: mvs, the tree's choose / mv32
+        and choose64 / mv64, the intra-in-P mask and modes, SAO, the row
+        SSDs, then the CG wire."""
         recon_y, recon_u, recon_v, ly, lu, lv, meta = out
         meta_np = meta.cpu().numpy()
         gh, gw = self.gh, self.gw
-        nmv = gh * gw * 4
-        mvs = meta_np[:nmv].copy().view(np.int16).reshape(gh, gw, 2)
-        off = nmv
+        gh2, gw2 = self.gh2, self.gw2
+        off = 0
+
+        def take(nbytes, dt=None, shape=None):
+            nonlocal off
+            a = meta_np[off:off + nbytes]
+            off += nbytes
+            if dt is not None:
+                a = a.copy().view(dt)
+            return a.reshape(shape) if shape is not None else a
+        mvs = take(gh * gw * 4, np.int16, (gh, gw, 2))
+        if self.tree:
+            choose = take(gh2 * gw2, None, (gh2, gw2))
+            mv32 = take(gh2 * gw2 * 4, np.int16, (gh2, gw2, 2))
+        choose64 = mv64 = None
+        if self.tree64:
+            gh4, gw4 = self.gh4, self.gw4
+            choose64 = take(gh4 * gw4, None, (gh4, gw4))
+            mv64 = take(gh4 * gw4 * 4, np.int16, (gh4, gw4, 2))
+        intra16 = imode16 = None
+        if self.cfg.intra_in_p:
+            gih, giw = self.h // 16, self.w // 16
+            intra16 = take(gih * giw, None, (gih, giw)).astype(bool)
+            imode16 = take(gih * giw, None, (gih, giw))
         sao_params = None
         if self.ps.sao_enabled:
             sgh = self.h // self.ps.ctu_size
             sgw = self.w // self.ps.ctu_size
-            nb = params_nbytes(sgh, sgw)
-            sao_params = unpack_params(meta_np[off:off + nb], sgh, sgw)
-            off += nb
-        row_ssd = meta_np[off:off + self.h * 4].copy().view(np.int32)
-        off += self.h * 4
+            sao_params = unpack_params(take(params_nbytes(sgh, sgw)),
+                                       sgh, sgw)
+        row_ssd = take(self.h * 4, np.int32)
         n_tot = self.w * self.h * 3 // 2
         E = esc_capacity(n_tot, self.pack_C)
         wire = _parse_cg_wire(meta_np[None, off:], 0, n_tot, self.pack_C,
@@ -556,9 +1041,52 @@ class TorchInterEncoder:
         desc.coef_v = np.ascontiguousarray(pv, np.int16)
         desc.row_ssd_y = row_ssd     # exact luma SSD per row vs source
         desc.sao_params = sao_params  # device-decided (recon pre-filtered)
-        select_inter_syntax(self.ps, desc, cu)
+        if intra16 is not None and intra16.any():
+            m8 = np.repeat(np.repeat(intra16, 2, 0), 2, 1)
+            desc.pred_mode[m8] = MODE_INTRA
+            desc.tr_depth[m8] = 0
+            desc.skip[m8] = 0
+            desc.mv[m8] = 0
+            m4 = np.repeat(np.repeat(intra16, 4, 0), 4, 1)
+            lm4 = np.repeat(np.repeat(imode16, 4, 0), 4, 1)
+            desc.luma_mode[m4] = lm4[m4]
+            cm8 = np.repeat(np.repeat(imode16, 2, 0), 2, 1)
+            desc.chroma_mode[m8] = cm8[m8]
+        if self.tree:
+            ch = np.repeat(np.repeat(choose.astype(bool), 4, 0), 4, 1)
+            m32 = np.repeat(np.repeat(mv32.astype(np.int32), 4, 0), 4, 1)
+            full = np.zeros(desc.cu_depth.shape, bool)
+            full[:ch.shape[0], :ch.shape[1]] = ch
+            desc.cu_depth[full] = self.ps.log2_ctu - 5    # CU32 depth
+            desc.mv[:ch.shape[0], :ch.shape[1]][ch] = m32[ch]
+            if choose64 is not None:
+                c64 = np.repeat(np.repeat(choose64.astype(bool), 8, 0),
+                                8, 1)
+                m64 = np.repeat(np.repeat(mv64.astype(np.int32), 8, 0),
+                                8, 1)
+                desc.cu_depth[c64] = 0
+                desc.tr_depth[c64] = 1        # forced TU32 split
+                desc.mv[c64] = m64[c64]
+            select_inter_syntax_tree(self.ps, desc)
+        else:
+            select_inter_syntax(self.ps, desc, cu)
         return (desc, DevicePlane(recon_y), DevicePlane(recon_u),
                 DevicePlane(recon_v))
 
     def encode_frame(self, src, ref, avg_dist: float = 1000.0, qp=None):
         return self.fetch(self.dispatch(src, ref, avg_dist, qp=qp))
+
+
+def _quarters(blocks: torch.Tensor, m: int) -> torch.Tensor:
+    """(B, 2m, 2m) -> (4B, m, m): each block's four m x m quarters in z
+    order."""
+    B = blocks.shape[0]
+    return blocks.reshape(B, 2, m, 2, m).permute(0, 1, 3, 2, 4) \
+        .reshape(B * 4, m, m)
+
+
+def _full(quarters: torch.Tensor, m: int) -> torch.Tensor:
+    """Inverse of _quarters: (4B, m, m) -> (B, 2m, 2m)."""
+    B = quarters.shape[0] // 4
+    return quarters.reshape(B, 2, 2, m, m).permute(0, 1, 3, 2, 4) \
+        .reshape(B, 2 * m, 2 * m)

@@ -7,9 +7,12 @@ EncoderPipeline, restricted to the configurations the port covers:
   - all-intra CU32 / CU64 with intra_rdo (gop_size 0, the fast decision,
     no per-CTB QP maps): the intra CU-tree encoder, batched the same way,
     with deblocking and SAO inside its device program;
-  - IPPP CU16 (gop_size 1): the depth-2 P chain, whose motion search reads
-    the device-resident recon of the previous frame; periodic and
-    scene-change IDRs.
+  - IPPP (gop_size 1) at CU16, and at CU32 / CU64 with intra_rdo (the
+    CU tree: the intra tree encoder's I frames and the P program's
+    CU32 / CU64 layers), in every performance mode, with the FAR motion
+    search level (me_range > 32) and intra-in-P: the depth-2 P chain,
+    whose motion search reads the device-resident recon of the previous
+    frame; periodic and scene-change IDRs.
 
 SAO: the tree and P programs decide and apply SAO on the device and ship
 its parameters on the wire. The CU16 intra program has none, and for its
@@ -70,22 +73,17 @@ def unported(cfg: EncoderConfig) -> str | None:
     it is covered."""
     inter = cfg.gop_size != 0
     checks = (
-        (inter and cfg.cu_size != 16,
-         f"cu_size {cfg.cu_size} with P frames (the CU32/CU64 inter tree: "
-         "Queue 1 item 1)"),
         (cfg.aq_strength > 0 or cfg.rc_ctu,
          "per-CTB QP maps, AQ and row-RC (Queue 1 item 4)"),
         ((cfg.cu_size != 16 or cfg.intra_rdo) and not tree_ok(cfg),
          "an intra configuration the JAX package encodes only on its numpy "
-         "golden path (RD_FULL, intra_rdo at CU16, uniform CU32/CU64: "
+         "golden path (RD_FULL, intra_rdo at CU16, CU32/CU64 without "
+         "intra_rdo, whose I frames have no device program in IPPP either: "
          "Queue 1 item 7)"),
         (cfg.num_b != 0, "B frames (Queue 1 item 5)"),
         (inter and cfg.gpb, "generalized-B P frames (Queue 1 item 5)"),
         (inter and cfg.num_ref_frames != 1,
          "multi-reference P frames (Queue 1 item 5)"),
-        (inter and cfg.me_range > 32,
-         f"me_range {cfg.me_range} > 32 (the FAR level: Queue 1 item 2)"),
-        (inter and cfg.intra_in_p, "intra-in-P (Queue 1 item 3)"),
         (cfg.num_devices != 1, "multi-GPU encoding (Queue 1 item 6)"),
     )
     for bad, what in checks:

@@ -1,6 +1,7 @@
-"""Inter syntax selection and the inter cost constants the device P
-program reads: the port's copies of zf_multiplier, MERGE_FAST_BITS_BASE
-and select_inter_syntax with its helpers from
+"""Inter syntax selection and the inter constants the device P program
+reads: the port's copies of zf_multiplier, MERGE_FAST_BITS_BASE,
+select_inter_syntax and select_inter_syntax_tree with their helpers, the
+FAR level's far_range / far_grid and the intra-in-P constants, from
 homerhevc_tpu/golden/inter_frame.py (pure host logic, shared by every
 inter path).
 """
@@ -17,6 +18,9 @@ from homerhevc_tpu_torch.hevc.inter import (
 from homerhevc_tpu_torch.hevc.syntax import FrameDesc, MODE_INTER
 
 MERGE_FAST_BITS_BASE = 4.0     # merge syntax bins (flag + idx TR base)
+INTRA_P_MODE_BITS_MPM = np.float32(3.0)   # pred_mode bin + ~2 MPM bins
+INTRA_P_MODE_BITS_REM = np.float32(7.0)   # pred_mode bin + rem 6 bins
+INTRA_P_ROUNDS = 3
 
 
 def zf_multiplier(avg_dist: float, qp: int) -> float:
@@ -365,3 +369,201 @@ def _select_inter_syntax_loop(ps: ParamSets, desc: FrameDesc, cu_size: int,
                 desc.inter_mode[sl8] = 2
                 desc.mvp_flag[sl8] = f
                 desc.root_cbf[sl8] = 1 if has_res else 0
+
+
+def far_range(ps, search: int) -> int:
+    """FAR-level range from config: me_range beyond the default +-32 reach
+    (and beyond the 2x sweep's +-2*search) activates the 4x pyramid
+    level. The default me_range=32 never activates it."""
+    mr = int(getattr(ps.cfg, "me_range", 32))
+    return mr if mr > max(32, 2 * search) else 0
+
+
+def far_grid(rng_c: int, far: int):
+    """Dense offset grid for the 4x-decimated FAR pyramid level: covers
+    +-far horizontal / +-min(far,64) vertical full-pel (reference search
+    window +-128x64, hmr_private.h:76-77). Step 1 — coarser strides alias
+    on noise-like texture (a 4-full-pel shift maps 2x2 pools onto disjoint
+    pixels, erasing the SAD signal). Returns (offsets, vote_mask): offsets
+    in 4x-pel units raster order; vote_mask False where the 2x sweep
+    already covers the offset (those never enter the FAR shortlist)."""
+    xq, yq = far // 4, min(far // 4, 16)
+    inner = 2 * rng_c - 4          # full-res reach safely inside the 2x sweep
+    grid = [(qx, qy)
+            for qy in range(-yq, yq + 1)
+            for qx in range(-xq, xq + 1)]
+    mask = np.asarray([not (abs(4 * qx) <= inner and abs(4 * qy) <= inner)
+                       for qx, qy in grid], bool)
+    return grid, mask
+
+
+def _zorder_total(h8: int, w8: int, ctu: int) -> np.ndarray:
+    """Total coding-order key per 8x8 unit: CTB raster index major,
+    within-CTB Morton (z) order minor — T[a] < T[b] iff unit a is coded
+    before unit b (same rule as hevc.inter._coded_before, which compares
+    at 4-px granularity; 8-px-aligned points order identically)."""
+    uy, ux = np.mgrid[0:h8, 0:w8]
+    ctbs_x = -(-(w8 * 8) // ctu)
+    ctb_idx = ((uy * 8) // ctu) * ctbs_x + (ux * 8) // ctu
+    zy = ((uy * 8) % ctu) // 4
+    zx = ((ux * 8) % ctu) // 4
+    z = np.zeros_like(zy)
+    for b in range(5):
+        z |= ((zx >> b) & 1) << (2 * b)
+        z |= ((zy >> b) & 1) << (2 * b + 1)
+    zmax = 1 << 10
+    return ctb_idx.astype(np.int64) * zmax + z
+
+
+def _select_inter_syntax_tree_vec(ps: ParamSets, desc: FrameDesc) -> None:
+    """Vectorized tree-syntax selection (P slices, 2Nx2N, single ref):
+    one batched pass per CU size class over the final motion field. The
+    z-scan coded-before predicate for B0/A0 becomes an array compare of
+    precomputed total-order keys. Bit-identical to the recursive walk
+    (tests/test_inter.py::test_select_syntax_tree_vec_matches_walk);
+    replaces a ~0.5 s/frame python recursion at 1080p in the device
+    fetch path."""
+    w, h = desc.width, desc.height
+    ctu = ps.ctu_size
+    h8, w8 = h // 8, w // 8
+    inter_u = desc.pred_mode == MODE_INTER
+    T = _zorder_total(h8, w8, ctu)
+    OFFP = np.int64(1) << 16
+    packu = ((desc.mv[..., 0].astype(np.int64) + OFFP) * (1 << 33)
+             + (desc.mv[..., 1].astype(np.int64) + OFFP))
+    ZEROP = OFFP * (1 << 33) + OFFP
+    SENT = np.int64(1) << 62
+    packu = np.where(inter_u, packu, SENT)
+
+    log2ctu = ps.log2_ctu
+    for n in (64, 32, 16):
+        if n > ctu or h % n or w % n:
+            continue
+        r8 = n // 8
+        gh, gw = h // n, w // n
+        dep_n = log2ctu - (n.bit_length() - 1)
+        origin = (slice(0, None, r8), slice(0, None, r8))
+        present = (desc.cu_depth[origin] == dep_n) & inter_u[origin]
+        if not present.any():
+            continue
+        uyc = np.arange(gh)[:, None] * r8        # CU origin in 8-units
+        uxc = np.arange(gw)[None, :] * r8
+        t_cur = T[origin]
+
+        def nb(duy, dux):
+            """(valid, pack) of the unit at CU-relative 8-unit offset."""
+            uy = uyc + duy
+            ux = uxc + dux
+            inb = (uy >= 0) & (uy < h8) & (ux >= 0) & (ux < w8)
+            uyc_ = np.clip(uy, 0, h8 - 1)
+            uxc_ = np.clip(ux, 0, w8 - 1)
+            ok = inb & (T[uyc_, uxc_] < t_cur) & inter_u[uyc_, uxc_]
+            return ok, np.where(ok, packu[uyc_, uxc_], SENT)
+
+        v_a1, p_a1 = nb(r8 - 1, -1)
+        v_b1, p_b1 = nb(-1, r8 - 1)
+        v_b0, p_b0 = nb(-1, r8)
+        v_a0, p_a0 = nb(r8, -1)
+        v_b2, p_b2 = nb(-1, -1)
+
+        kept_a1 = v_a1
+        kept_b1 = v_b1 & ~(v_a1 & (p_b1 == p_a1))
+        kept_b0 = v_b0 & ~(v_b1 & (p_b0 == p_b1))
+        kept_a0 = v_a0 & ~(v_a1 & (p_a0 == p_a1))
+        n4 = (kept_a1.astype(np.int32) + kept_b1 + kept_b0 + kept_a0)
+        kept_b2 = (v_b2 & (n4 < 4) & ~(v_a1 & (p_b2 == p_a1))
+                   & ~(v_b1 & (p_b2 == p_b1)))
+
+        pos_a1 = np.zeros((gh, gw), np.int32)
+        pos_b1 = kept_a1.astype(np.int32)
+        pos_b0 = pos_b1 + kept_b1
+        pos_a0 = pos_b0 + kept_b0
+        pos_b2 = pos_a0 + kept_a0
+        n_spatial = pos_b2 + kept_b2
+
+        cur = packu[origin]
+        BIG = np.int32(99)
+        k = np.full((gh, gw), BIG, np.int32)
+        for kept, p, pos in ((kept_b2, p_b2, pos_b2),
+                             (kept_a0, p_a0, pos_a0),
+                             (kept_b0, p_b0, pos_b0),
+                             (kept_b1, p_b1, pos_b1),
+                             (kept_a1, p_a1, pos_a1)):
+            k = np.where(kept & (p == cur), pos, k)
+        zfill = (cur == ZEROP) & (n_spatial < MERGE_MAX) & (k == BIG)
+        k = np.where(zfill, n_spatial, k)
+        merged = (k != BIG) & present
+
+        def blk_any(plane, m):
+            return plane.reshape(gh, m, gw, m).any(axis=(1, 3))
+        has_res = (blk_any(desc.coef_y, n)
+                   | blk_any(desc.coef_u, n // 2)
+                   | blk_any(desc.coef_v, n // 2))
+
+        # AMVP: mv_a = first of (A0, A1); mv_b = first of (B0, B1, B2)
+        mva_p = np.where(v_a0, p_a0, np.where(v_a1, p_a1, SENT))
+        mvb_p = np.where(v_b0, p_b0, np.where(v_b1, p_b1,
+                                              np.where(v_b2, p_b2, SENT)))
+        have_a = mva_p != SENT
+        have_b = mvb_p != SENT
+        lst0 = np.where(have_a, mva_p, np.where(have_b, mvb_p, ZEROP))
+        dup = have_a & have_b & (mvb_p == mva_p)
+        lst1 = np.where(have_a & have_b & ~dup, mvb_p, ZEROP)
+
+        def unpack(p):
+            return ((p >> 33) - OFFP, (p & ((np.int64(1) << 33) - 1)) - OFFP)
+        l0x, l0y = unpack(lst0)
+        l1x, l1y = unpack(lst1)
+        mvx = desc.mv[origin + (0,)].astype(np.int64)
+        mvy = desc.mv[origin + (1,)].astype(np.int64)
+        c0 = np.abs(mvx - l0x) + np.abs(mvy - l0y)
+        c1 = np.abs(mvx - l1x) + np.abs(mvy - l1y)
+        mvp_f = (c0 > c1).astype(np.uint8)
+
+        skip = merged & ~has_res
+        mrg = merged & has_res
+        amvp = present & ~merged
+        im = np.where(skip, 0, np.where(mrg, 1, 2)).astype(np.uint8)
+        ki = np.where(merged, k, 0).astype(np.uint8)
+        rcbf = np.where(skip, 0, np.where(mrg, 1,
+                        has_res.astype(np.uint8))).astype(np.uint8)
+        f8 = np.where(amvp, mvp_f, 0).astype(np.uint8)
+
+        def rep(a):
+            return np.repeat(np.repeat(a, r8, 0), r8, 1)
+        m8 = rep(present)
+        desc.skip[m8] = rep(skip.astype(np.uint8))[m8]
+        desc.inter_mode[m8] = rep(im)[m8]
+        desc.merge_idx[m8] = rep(ki)[m8]
+        desc.root_cbf[m8] = rep(rcbf)[m8]
+        desc.mvp_flag[m8] = rep(f8)[m8]
+
+
+def select_inter_syntax_tree(ps: ParamSets, desc: FrameDesc,
+                             is_b: bool = False, dists=(1, 1)) -> None:
+    """Skip/merge/AMVP selection for a mixed CU32/CU16 tree. Candidate
+    derivation depends only on the final motion field + geometry (what a
+    decoder derives), so CUs can be visited in any order. dists feed the
+    AMVP POC-distance scaling of mixed-direction B slices."""
+    ctu = ps.ctu_size
+    if (not is_b and desc.mv_l1 is None and desc.ref_idx is None
+            and (desc.inter_part is None or not desc.inter_part.any())
+            and desc.width % ctu == 0 and desc.height % ctu == 0
+            and desc.coef_y is not None):
+        _select_inter_syntax_tree_vec(ps, desc)
+        return
+
+    def walk(x0, y0, n, depth):
+        if x0 >= desc.width or y0 >= desc.height:
+            return
+        inside = x0 + n <= desc.width and y0 + n <= desc.height
+        if inside and int(desc.cu_depth[y0 // 8, x0 // 8]) <= depth:
+            _select_cu_syntax(ps, desc, x0, y0, n, is_b, dists)
+            return
+        half = n // 2
+        for (dy, dx) in ((0, 0), (0, half), (half, 0), (half, half)):
+            walk(x0 + dx, y0 + dy, half, depth + 1)
+
+    for cy in range(-(-desc.height // ctu)):
+        for cx in range(-(-desc.width // ctu)):
+            walk(cx * ctu, cy * ctu, ctu, 0)

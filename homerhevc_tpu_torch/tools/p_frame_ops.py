@@ -1,0 +1,110 @@
+"""Count the aten operations one P frame of the port dispatches.
+
+    python3 -m homerhevc_tpu_torch.tools.p_frame_ops [--device cuda]
+        [--size 256x128] [--cu 64] [--perf 0] [--no-sao]
+
+A TorchDispatchMode sees every aten operation that
+TorchInterEncoder.dispatch runs for one P frame (IPPP, intra_rdo,
+deblocking, SAO and sign hiding at QP 32, the configuration of
+chip_smoke.py's path C; --no-sao turns SAO off), after one frame that
+warms the caches, on chip_smoke.py's bench clip. On a CUDA device most
+operations that are not views launch one kernel (a view launches none, a
+few operations none or two), so their count approximates the launches of
+a P frame before it runs on the card. The device is the card unless
+--device cpu is given. One JSON line: the configuration, the device, all
+operations and those that are not views.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from collections import Counter
+
+import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts aten operations under `stage` (all, and those not views)."""
+
+    def __init__(self):
+        super().__init__()
+        self.stage = "other"
+        self.ops = Counter()
+        self.compute = Counter()
+
+    def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+        self.ops[self.stage] += 1
+        if not func.is_view:
+            self.compute[self.stage] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def p_frame_config(w: int, h: int, cu: int, perf: int = 0,
+                   sao: bool = True):
+    """chip_smoke.py path C's configuration at w x h."""
+    from homerhevc_tpu_torch.config import EncoderConfig
+    return EncoderConfig(width=w, height=h, cu_size=cu, gop_size=1,
+                         intra_period=0, qp=32, intra_rdo=True,
+                         sign_hiding=True, deblocking=True, sao=sao,
+                         me_range=32, performance_mode=perf)
+
+
+def bench_clip(w: int, h: int, n: int, seed: int = 42):
+    """n frames (y, u, v) of a moving texture over gradients, with moving
+    chroma waves: the clip every phase of chip_smoke.py encodes."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    tex = (rng.rand(h, w) * 40).astype(np.float32)
+    out = []
+    for t in range(n):
+        y = np.clip(60 + 0.08 * xx + 0.05 * yy
+                    + 30 * np.sin(xx / 37.0 + t * 0.3)
+                    + np.roll(tex, t * 4, axis=1), 0, 255).astype(np.uint8)
+        u = np.clip(128 + 20 * np.sin(xx[::2, ::2] / 53.0 + t * 0.2),
+                    0, 255).astype(np.uint8)
+        v = np.clip(128 + 20 * np.cos(yy[::2, ::2] / 41.0 - t * 0.1),
+                    0, 255).astype(np.uint8)
+        out.append((y, u, v))
+    return out
+
+
+def count_p_frame(enc, src, ref):
+    """(all aten operations, those not views) of one enc.dispatch."""
+    counter = OpCounter()
+    with counter:
+        enc.dispatch(src, ref)
+    if enc.device.type == "cuda":
+        torch.cuda.synchronize()
+    return sum(counter.ops.values()), sum(counter.compute.values())
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--size", default="256x128")
+    ap.add_argument("--cu", type=int, default=64)
+    ap.add_argument("--perf", type=int, default=0)
+    ap.add_argument("--no-sao", action="store_true")
+    a = ap.parse_args()
+    from homerhevc_tpu_torch.device import resolve_device
+    from homerhevc_tpu_torch.engine.inter_encoder import TorchInterEncoder
+    from homerhevc_tpu_torch.hevc.headers import ParamSets
+    from homerhevc_tpu_torch.state import reference_from_numpy
+    device = resolve_device(a.device)
+    w, h = (int(s) for s in a.size.split("x"))
+    cfg = p_frame_config(w, h, a.cu, a.perf, sao=not a.no_sao)
+    enc = TorchInterEncoder(ParamSets.from_config(cfg), cfg, device=device)
+    frames = bench_clip(w, h, 3)
+    ref = reference_from_numpy(frames[0], device)
+    enc.dispatch(frames[1], ref)                       # warm-up
+    ops, compute = count_p_frame(enc, frames[2], ref)
+    print(json.dumps({"size": a.size, "cu": a.cu, "perf": a.perf,
+                      "sao": not a.no_sao, "device": str(device),
+                      "aten_ops": ops, "not_views": compute}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

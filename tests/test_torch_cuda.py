@@ -1,9 +1,10 @@
 """Tests of the torch port that need an NVIDIA card: the hand-written CUDA
 kernel against its plain version, the wrapper's checks on CUDA tensors,
-and the encoders (flat CU16 I and P, the intra CU tree, device SAO) and
-the ops they add on the card against the same code on the CPU. They
-skip here with a reason. This file imports no jax, so on the card's
-machine it runs without the JAX package's conftest:
+and the encoders (flat CU16 I and P, the intra CU tree, device SAO, the
+CU-tree P program with the FAR level and intra-in-P) and the ops they add
+on the card against the same code on the CPU. They skip here with a
+reason. This file imports no jax, so on the card's machine it runs
+without the JAX package's conftest:
 
     python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -40,10 +41,12 @@ def _sweep_inputs(seed, gh, gw, R, m, device):
             torch.from_numpy(rp.astype(np.uint8)).to(device))
 
 
-# 720p slice shapes (R=16 IPPP, R=24 IBP), ragged grids, a large radius,
-# and the tiling's edges: gw past one 16-column tile and ragged, gh = 1,
-# R not a multiple of the 8-dx run, m = 16 with R = 24, m = 32
+# 720p slice shapes (R=16 IPPP, R=24 IBP), the 1080p shapes of the CU-tree
+# P frames (1088 coded lines: gh 68; and gh 72), ragged grids, a large
+# radius, and the tiling's edges: gw past one 16-column tile and ragged,
+# gh = 1, R not a multiple of the 8-dx run, m = 16 with R = 24, m = 32
 @pytest.mark.parametrize("gh,gw,R,m", [(45, 80, 16, 8), (45, 80, 24, 8),
+                                       (68, 120, 16, 8), (72, 120, 16, 8),
                                        (3, 5, 16, 8), (4, 9, 48, 8),
                                        (2, 3, 24, 16), (2, 21, 4, 8),
                                        (1, 5, 8, 8), (2, 3, 13, 8),
@@ -125,6 +128,45 @@ def test_encoders_on_card_match_cpu(card, deblock, sao):
         assert np.array_equal(a, b)
     if sao:
         _assert_sao_equal(cp.sao_params, gp.sao_params)
+
+
+@pytest.mark.parametrize("cu,perf,me_range,intra_in_p", [
+    (32, 0, 32, False), (64, 0, 32, False), (32, 1, 32, False),
+    (64, 2, 32, False), (64, 0, 64, False), (32, 0, 32, True),
+    (64, 1, 32, True)])
+def test_tree_p_frame_on_card_matches_cpu(card, cu, perf, me_range,
+                                          intra_in_p):
+    """The CU-tree P program with deblocking and SAO (FULL, FAST, UFAST,
+    the FAR level, intra-in-P) from a shifted reference: every desc
+    field, recon and SAO parameter equals the CPU path's; the sweep runs
+    once."""
+    w, h = 128, 128
+    rng = np.random.RandomState(cu + perf)
+    y, u, v = _frame(rng, w, h)
+    y[64:] = (60 + np.arange(w) // 2)[None, :]    # smooth: large CUs win
+    cfg = EncoderConfig(width=w, height=h, qp=32, gop_size=1, intra_period=0,
+                        sao=True, deblocking=True, sign_hiding=True,
+                        cu_size=cu, intra_rdo=True, performance_mode=perf,
+                        me_range=me_range, intra_in_p=intra_in_p)
+    ps = ParamSets.from_config(cfg)
+    src = (np.roll(y, 5, 1), np.roll(u, 2, 1), np.roll(v, 2, 1))
+    src[0][8:40, 40:88] = 200                  # a patch motion misses
+    out = {}
+    for dev in ("cpu", card):
+        before = LAUNCHES["coarse_sweep_sads"]
+        d, *rec = TorchInterEncoder(ps, cfg, device=dev).encode_frame(
+            src, reference_from_numpy((y, u, v), dev), 700.0)
+        assert LAUNCHES["coarse_sweep_sads"] == before + (dev == card)
+        out[str(dev)] = (d, [np.asarray(p) for p in rec])
+    (cd, crec), (gd, grec) = out["cpu"], out[str(card)]
+    for f in ("cu_depth", "tr_depth", "pred_mode", "mv", "coef_y", "coef_u",
+              "coef_v", "skip", "inter_mode", "merge_idx", "root_cbf",
+              "mvp_flag", "luma_mode", "chroma_mode", "row_ssd_y"):
+        assert np.array_equal(getattr(cd, f), getattr(gd, f)), f
+    for a, b in zip(crec, grec):
+        assert np.array_equal(a, b)
+    _assert_sao_equal(cd.sao_params, gd.sao_params)
+    assert (cd.cu_depth < ps.log2_ctu - 4).any()
 
 
 def _assert_sao_equal(p, q):

@@ -2,13 +2,15 @@
 128x64 I frame (deblocking off and on), P frame and intra CU-tree frames
 (CTU 32 and 64 with deblocking), encoded by homerhevc_tpu.golden and
 serialized by homerhevc_tpu.hevc, hash to GOLDEN_DIGESTS; the port's CPU
-path hashes to the same. The SAO tree cell is pinned in test_torch_sao.py,
-where the JAX SAO is compiled at its shape anyway. On the card,
+path hashes to the same. The cells with SAO (the tree frame and the IPPP
+tree streams) are pinned in test_torch_sao.py, where the JAX SAO is
+compiled at their shape anyway. On the card,
 chip_smoke.py holds the port's CUDA path to these constants."""
 
 import types
 
 import numpy as np
+import torch
 
 import chip_smoke
 from homerhevc_tpu.config import EncoderConfig
@@ -18,7 +20,9 @@ from homerhevc_tpu.golden.intra_frame import encode_intra_frame
 from homerhevc_tpu.hevc import bitstream, cabac, ctx_tables, headers, syntax
 from tests.torch_golden import golden_tree
 
-SAO_CELL = "I tree CU32 deblock+SAO"
+torch.set_num_threads(1)    # one intra-op thread per test worker
+
+SAO_CELLS = ("I tree CU32 deblock+SAO",) + tuple(chip_smoke.IPPP_CELLS)
 
 _HEVC = types.SimpleNamespace(headers=headers, bitstream=bitstream,
                               cabac=cabac, ctx_tables=ctx_tables,
@@ -57,7 +61,7 @@ def golden_digests():
         (ry, ru, rv))
     y, u, v = chip_smoke.tree_parity_inputs()
     for name, cell in chip_smoke.TREE_CELLS.items():
-        if name == SAO_CELL:
+        if name in SAO_CELLS:
             continue
         cfg = EncoderConfig(**chip_smoke.TREE_CFG, **cell)
         ps = headers.ParamSets.from_config(cfg)
@@ -69,8 +73,8 @@ def golden_digests():
 
 
 def test_chip_smoke_digests_are_the_golden_encoders():
-    want = dict(chip_smoke.GOLDEN_DIGESTS)
-    del want[SAO_CELL]
+    want = {k: v for k, v in chip_smoke.GOLDEN_DIGESTS.items()
+            if k not in SAO_CELLS}
     assert golden_digests() == want
 
 

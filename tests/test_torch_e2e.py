@@ -9,12 +9,15 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from homerhevc_tpu.api import Encoder as JaxEncoder
 from homerhevc_tpu.config import EncoderConfig as JaxConfig
 from homerhevc_tpu_torch.api import Encoder as TorchEncoder
 from homerhevc_tpu_torch.config import EncoderConfig
 from tests.conftest import decode_annexb, make_yuv
+
+torch.set_num_threads(1)    # one intra-op thread per test worker
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -118,7 +121,7 @@ def test_port_runs_without_jax():
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'homerhevc_tpu' not in sys.modules, 'homerhevc_tpu'\n"
         "print('ok')\n")
-    env = dict(os.environ, PYTHONPATH=_ROOT)
+    env = dict(os.environ, PYTHONPATH=_ROOT, OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]

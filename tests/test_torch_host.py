@@ -1,13 +1,15 @@
 """The port's own host tier against the JAX package's modules it was copied
 from: tables, CABAC context init, headers, availability, the inter syntax
-selection, the host SAO decision and filter, rate control and the native
-serializer give identical values and bytes on the same inputs, so the
-copies cannot drift apart."""
+selection (flat and CU tree), the FAR grid and intra-in-P constants, the
+host SAO decision and filter, rate control and the native serializer give
+identical values and bytes on the same inputs, so the copies cannot drift
+apart."""
 
 import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from homerhevc_tpu import native as j_native
 from homerhevc_tpu.config import BitrateMode as JBitrateMode
@@ -35,6 +37,8 @@ from homerhevc_tpu_torch.hevc import syntax as t_syntax
 from homerhevc_tpu_torch.hevc import tables as t_tables
 from homerhevc_tpu_torch.ops import deblock as t_deblock
 from homerhevc_tpu_torch.ops import interp as t_interp
+
+torch.set_num_threads(1)    # one intra-op thread per test worker
 
 
 def _cfgs(**kw):
@@ -143,6 +147,85 @@ def test_inter_syntax_and_native_slice_equal_the_jax_package(w, h, is_b):
     got = t_native.encode_slice_native(tps, td, t_ctx.init_contexts("P", 32),
                                        True, **args)
     assert want is not None and got == want
+
+
+def _tree_desc(mod, rng, w, h, ctu):
+    """A random P FrameDesc of a CU tree at CTU 32 or 64, as the tree P
+    program leaves it: CU64 (forced TU32 split), CU32 or four CU16s per
+    CTB, a few intra CU16s (mode in luma and chroma), sparse residuals."""
+    d = _p_desc(mod, rng, w, h, 16)
+    log2_ctu = ctu.bit_length() - 1
+    d.cu_depth[:] = log2_ctu - 4
+    for y0 in range(0, h - 31, 32):
+        for x0 in range(0, w - 31, 32):
+            if rng.rand() < 0.5:
+                sl = (slice(y0 // 8, y0 // 8 + 4), slice(x0 // 8, x0 // 8 + 4))
+                d.cu_depth[sl] = log2_ctu - 5
+                d.mv[sl] = d.mv[y0 // 8, x0 // 8]
+    if ctu == 64:
+        for y0 in range(0, h - 63, 64):
+            for x0 in range(0, w - 63, 64):
+                if rng.rand() < 0.4:
+                    sl = (slice(y0 // 8, y0 // 8 + 8),
+                          slice(x0 // 8, x0 // 8 + 8))
+                    d.cu_depth[sl] = 0
+                    d.tr_depth[sl] = 1
+                    d.mv[sl] = d.mv[y0 // 8, x0 // 8]
+    intra16 = (rng.rand(h // 16, w // 16) < 0.1) & (
+        d.cu_depth[::2, ::2] == log2_ctu - 4)
+    m8 = np.repeat(np.repeat(intra16, 2, 0), 2, 1)
+    modes = rng.randint(0, 35, intra16.shape)
+    d.pred_mode[m8] = mod.MODE_INTRA
+    d.mv[m8] = 0
+    d.luma_mode[np.repeat(np.repeat(intra16, 4, 0), 4, 1)] = \
+        np.repeat(np.repeat(modes, 4, 0), 4, 1)[
+            np.repeat(np.repeat(intra16, 4, 0), 4, 1)]
+    d.chroma_mode[m8] = np.repeat(np.repeat(modes, 2, 0), 2, 1)[m8]
+    return d
+
+
+@pytest.mark.parametrize("w,h,ctu", [(128, 64, 32), (128, 128, 64),
+                                     (96, 80, 32)])
+def test_inter_syntax_tree_and_native_slice_equal_the_jax_package(w, h, ctu):
+    """select_inter_syntax_tree: its vectorized pass (whole CTUs) and the
+    recursive walk (a ragged last CTU row), then the native CABAC bytes of
+    the P slice."""
+    kw = dict(width=w, height=h, cu_size=ctu, gop_size=1, sao=False,
+              intra_rdo=True)
+    jcfg, tcfg = _cfgs(**kw)
+    jps = j_headers.ParamSets.from_config(jcfg)
+    tps = t_headers.ParamSets.from_config(tcfg)
+    jd = _tree_desc(j_syntax, np.random.RandomState(w + ctu), w, h, ctu)
+    td = _tree_desc(t_syntax, np.random.RandomState(w + ctu), w, h, ctu)
+    j_inter.select_inter_syntax_tree(jps, jd)
+    t_inter.select_inter_syntax_tree(tps, td)
+    for f in ("skip", "inter_mode", "merge_idx", "mvp_flag", "root_cbf"):
+        assert np.array_equal(getattr(td, f), getattr(jd, f)), f
+    assert (td.inter_mode == 0).any() and (td.inter_mode == 2).any()
+    args = dict(slice_type=t_headers.SLICE_P, ref_dists=(1, 1), slice_qp=32)
+    want = j_native.encode_slice_native(jps, jd, j_ctx.init_contexts("P", 32),
+                                        True, **args)
+    got = t_native.encode_slice_native(tps, td, t_ctx.init_contexts("P", 32),
+                                       True, **args)
+    assert want is not None and got == want
+
+
+def test_far_grid_and_intra_p_constants_equal_the_jax_package():
+    assert t_inter.INTRA_P_ROUNDS == j_inter.INTRA_P_ROUNDS
+    for name in ("INTRA_P_MODE_BITS_MPM", "INTRA_P_MODE_BITS_REM"):
+        a, b = getattr(t_inter, name), getattr(j_inter, name)
+        assert a == b and a.dtype == b.dtype, name
+    for rng_c, far in ((16, 64), (16, 128), (24, 96), (8, 36)):
+        tg, tm = t_inter.far_grid(rng_c, far)
+        jg, jm = j_inter.far_grid(rng_c, far)
+        assert tg == jg and np.array_equal(tm, jm)
+    for mr in (16, 32, 36, 64, 256):
+        jcfg, tcfg = _cfgs(width=64, height=64, me_range=mr)
+        for search in (8, 16, 24):
+            assert t_inter.far_range(
+                t_headers.ParamSets.from_config(tcfg), search) == \
+                j_inter.far_range(j_headers.ParamSets.from_config(jcfg),
+                                  search)
 
 
 @pytest.mark.parametrize("ctu,qp", [(16, 27), (32, 32), (64, 37)])

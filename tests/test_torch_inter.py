@@ -6,6 +6,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from homerhevc_tpu.config import EncoderConfig as JaxConfig
 from homerhevc_tpu.engine.inter_encoder import TpuInterEncoder
@@ -15,6 +16,8 @@ from homerhevc_tpu_torch.engine.inter_encoder import TorchInterEncoder
 from homerhevc_tpu_torch.hevc.headers import ParamSets
 from homerhevc_tpu_torch.state import reference_from_numpy
 from tests.conftest import make_yuv
+
+torch.set_num_threads(1)    # one intra-op thread per test worker
 
 _FIELDS = ("mv", "coef_y", "coef_u", "coef_v", "skip", "inter_mode",
            "merge_idx", "mvp_flag")

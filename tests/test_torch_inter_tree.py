@@ -1,0 +1,242 @@
+"""The port's CU-tree P program (TorchInterEncoder at CTU 32 and 64)
+against the JAX TpuInterEncoder from the same reference picture, bit-exact
+in every field tests/test_tpu_inter.py compares and in the per-row luma
+SSD, in the FULL, FAST and UFAST modes; and the CTU-64 IPPP stream through
+api.Encoder, whose P frames equal golden encode_inter_frame_tree from the
+same reference and which decodes (FFmpeg) to the port's recon. (The JAX
+CTU-64 stream is not a reference: its intra tree does not decode to its
+own recon, ROADMAP Queue 3.)"""
+
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from homerhevc_tpu.config import EncoderConfig as JaxConfig
+from homerhevc_tpu.engine.inter_encoder import TpuInterEncoder
+from homerhevc_tpu.golden.inter_frame import encode_inter_frame_tree
+from homerhevc_tpu.hevc.headers import ParamSets as JaxParamSets
+from homerhevc_tpu_torch.api import Encoder
+from homerhevc_tpu_torch.config import EncoderConfig, PerformanceMode
+from homerhevc_tpu_torch.engine.inter_encoder import TorchInterEncoder
+from homerhevc_tpu_torch.hevc.headers import ParamSets
+from homerhevc_tpu_torch.state import reference_from_numpy
+from tests.conftest import decode_annexb
+from tests.torch_golden import P_FIELDS, assert_p_frames_equal, torch_p_frame
+
+torch.set_num_threads(1)    # one intra-op thread per test worker
+
+def _sine_pair(seed, w, h, seam=None):
+    """tests/test_tpu_inter.py's sine texture and a copy moved by 5 px,
+    or (seam) moved by +5 left of the seam column and by -3 right of it,
+    as in tests/test_perf_mode.py: CTBs across the seam have sub-CU
+    motion that the fast-skip predicate rejects."""
+    rng = np.random.RandomState(seed)
+    xx, yy = np.meshgrid(np.arange(w), np.arange(h))
+    y0 = (128 + 60 * np.sin(xx / 19.0) + 40 * np.cos(yy / 13.0)
+          + rng.randint(-6, 7, (h, w))).astype(np.uint8)
+    u0 = (100 + 30 * np.sin(xx[:h // 2, :w // 2] / 11.0)).astype(np.uint8)
+    v0 = u0[::-1].copy()
+    y1 = np.roll(y0, 5, 1)
+    if seam is not None:
+        y1[:, seam:] = np.roll(y0, -3, 1)[:, seam:]
+    y1 = np.clip(y1.astype(int) + rng.randint(-2, 3, y0.shape), 0, 255) \
+        .astype(np.uint8)
+    return (y1, u0, v0), (y0, u0, v0)
+
+
+def _gradient_pair(seed, w, h, seam=None):
+    """tests/test_cu64.py's CTU-64 content: a smooth gradient (CU64 wins)
+    with a noise corner (it splits), moved by 2 px, or (seam) by +2 left of
+    the seam column and by -3 right of it: on the gradient the sub-CU
+    motion of a CTB64 across the seam spreads, and the fast-skip
+    predicate rejects consolidations FULL takes."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    y0 = np.clip(60 + 0.4 * xx + 0.3 * yy, 0, 255).astype(np.uint8)
+    y0[:24, :24] = (rng.rand(24, 24) * 255).astype(np.uint8)
+    u0 = np.full((h // 2, w // 2), 120, np.uint8)
+    v0 = np.full((h // 2, w // 2), 136, np.uint8)
+    y1 = np.roll(y0, 2, 1)
+    if seam is not None:
+        y1[:, seam:] = np.roll(y0, -3, 1)[:, seam:]
+    y1 = np.clip(y1.astype(int) + rng.randint(-2, 3, y0.shape), 0, 255) \
+        .astype(np.uint8)
+    return (y1, u0, v0), (y0, u0, v0)
+
+
+def _tree_kw(w, h, cu, qp, **kw):
+    return dict(dict(width=w, height=h, qp=qp, gop_size=1, intra_period=0,
+                     sao=False, deblocking=False, sign_hiding=True,
+                     cu_size=cu, reinit_gop_on_scene_change=False), **kw)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_encoder_for(items):
+    kw = dict(items)
+    jcfg = JaxConfig(**{**kw, "performance_mode":
+                        int(kw["performance_mode"])})
+    return TpuInterEncoder(JaxParamSets.from_config(jcfg), jcfg)
+
+
+def _jax_encoder(**kw):
+    """The JAX P program for EncoderConfig(**kw), traced once per
+    configuration in this module (QP and avg_dist are its inputs)."""
+    return _jax_encoder_for(tuple(sorted(kw.items())))
+
+
+# (cu, performance mode, size, content, deblocking, SAO). CTU 32 runs at
+# 128x80, whose last CU16 row lies outside every CTB32 (JAX's SAO needs
+# whole CTBs, so SAO is on at CTU 64 only). "split" content has two
+# motions: a sine texture split at a CTB32 edge, a gradient split inside
+# a CTB64. UFAST at CTU 32 is the FAST program (CTU 32 has no CU64 layer
+# to drop).
+CASES = {
+    "32-full": (32, PerformanceMode.FULL_COMPUTATION, 128, 80, "sine", True,
+                False),
+    "64-full": (64, PerformanceMode.FULL_COMPUTATION, 128, 64, "gradient",
+                True, True),
+    "32-fast": (32, PerformanceMode.FAST, 128, 80, "split", False, False),
+    "64-fast": (64, PerformanceMode.FAST, 128, 64, "split", False, False),
+    "64-ufast": (64, PerformanceMode.UFAST, 128, 64, "split", False, False),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_tree_p_program_matches_jax(case):
+    cu, perf, w, h, content, deblock, sao = CASES[case]
+    if content == "sine":
+        src, ref = _sine_pair(11, w, h)
+    elif content == "gradient":
+        src, ref = _gradient_pair(1234, w, h)
+    elif cu == 32:
+        src, ref = _sine_pair(11, w, h, seam=w // 2)
+    else:
+        src, ref = _gradient_pair(3, w, h, seam=w // 4)
+    kw = _tree_kw(w, h, cu, 30 if cu == 32 else 32, deblocking=deblock,
+                  sao=sao, performance_mode=perf)
+    want = _jax_encoder(**kw).encode_frame(src, ref)
+    got = torch_p_frame(kw, src, ref)
+    assert_p_frames_equal(want, got)
+    depth = got[0].cu_depth
+    cu16 = 1 if cu == 32 else 2                  # the CU16 depth
+    assert (depth < cu16).any(), "no CU32 / CU64 chosen"
+    if perf == PerformanceMode.UFAST and cu == 64:
+        assert not (depth == 0).any(), "UFAST must skip the CU64 layer"
+    if cu == 64 and perf == PerformanceMode.FULL_COMPUTATION:
+        assert len(np.unique(depth)) == 3        # CU64, CU32 and CU16
+    if perf == PerformanceMode.FAST:
+        # the fast-skip mask rejects a consolidation FULL takes
+        full = torch_p_frame({**kw, "performance_mode":
+                              PerformanceMode.FULL_COMPUTATION}, src, ref)
+        assert (full[0].cu_depth < depth).any()
+
+
+class _IntSums(TorchDispatchMode):
+    """The largest int32 sum seen, by the number of elements summed."""
+
+    def __init__(self):
+        super().__init__()
+        self.largest = {}
+
+    def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if (func is torch.ops.aten.sum.dim_IntList
+                and (kwargs or {}).get("dtype") == torch.int32):
+            n = int(np.prod([args[0].shape[d] for d in args[1]]))
+            self.largest[n] = max(self.largest.get(n, 0), int(out.max()))
+        return out
+
+
+def test_tree_p_program_matches_jax_past_exact_float32_sums():
+    """The port sums a block's SSD exactly and rounds it once; JAX sums
+    it in float32, exact only below 2^24. Full-swing noise against its
+    negative at QP 51 with the zero-forcing cap (avg_dist 1e9) takes the
+    uncoded SSD of a TU32 and the SSD of a CU64's cost above 2^24, and
+    every field still equals JAX's (the 64-full program)."""
+    w, h = 128, 64
+    rng = np.random.RandomState(5)
+    ref = tuple((rng.rand(*s) > 0.5).astype(np.uint8) * 255
+                for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+    src = tuple(255 - p for p in ref)
+    kw = _tree_kw(w, h, 64, 32, deblocking=True, sao=True,
+                  performance_mode=PerformanceMode.FULL_COMPUTATION)
+    want = _jax_encoder(**kw).encode_frame(src, ref, avg_dist=1e9, qp=51)
+    cfg = EncoderConfig(**kw)
+    enc = TorchInterEncoder(ParamSets.from_config(cfg), cfg, device="cpu")
+    sums = _IntSums()
+    with sums:
+        got = enc.encode_frame(src, reference_from_numpy(ref, "cpu"),
+                               avg_dist=1e9, qp=51)
+    assert sums.largest[32 * 32] > 2 ** 24       # a TU32's uncoded SSD
+    assert sums.largest[64 * 64] > 2 ** 24       # a CU64's cost
+    assert_p_frames_equal(want, got)
+
+
+def test_ctu64_stream_p_frames_equal_golden_and_decode(tmp_path):
+    """api.Encoder at CTU 64 (intra_rdo, deblocking, I + 2 P): each P frame
+    equals golden encode_inter_frame_tree from the reference and the
+    avg_dist the pipeline gave the P program, and the stream decodes to
+    the port's recon."""
+    w, h = 128, 64
+    (y1, u, v), (y0, _, _) = _gradient_pair(7, w, h)
+    frames = [(y0, u, v), (y1, u, v),
+              (np.roll(y1, 2, 1), np.roll(u, 1, 1), v)]
+    kw = _tree_kw(w, h, 64, 32, deblocking=True, intra_rdo=True)
+    enc = Encoder(EncoderConfig(**kw), device="cpu")
+    pipe = enc._pipeline
+    calls = []
+    dispatch = pipe._inter().dispatch
+
+    def spy(src, ref, avg_dist=1000.0, qp=None):
+        calls.append((src, tuple(np.asarray(p, np.int32) for p in ref),
+                      avg_dist, qp))
+        return dispatch(src, ref, avg_dist, qp=qp)
+    pipe._inter().dispatch = spy
+    descs = []
+    emit = pipe._emit
+
+    def spy_emit(desc, *a, **k):
+        descs.append(desc)
+        return emit(desc, *a, **k)
+    pipe._emit = spy_emit
+    efs = [e for f in frames for e in enc.encode(*f)] + list(enc.flush())
+    assert [e.frame_type for e in efs] == ["I", "P", "P"]
+    ps = JaxParamSets.from_config(JaxConfig(**kw))
+    for (src, ref, avg, qp), desc, ef in zip(calls, descs[1:], efs[1:]):
+        gd, gy, gu, gv = encode_inter_frame_tree(ps, src, ref, qp,
+                                                 avg_dist=avg)
+        for f in P_FIELDS:
+            assert np.array_equal(getattr(gd, f), getattr(desc, f)), f
+        assert np.array_equal(ef.recon["y"], gy.astype(np.uint8))
+        assert np.array_equal(ef.recon["u"], gu.astype(np.uint8))
+    assert any((d.cu_depth == 0).any() for d in descs[1:])
+    path = tmp_path / "ippp64.265"
+    path.write_bytes(b"".join(e.annex_b() for e in efs))
+    dec = decode_annexb(path)
+    assert len(dec) == 3
+    for d, e in zip(dec, efs):
+        assert np.array_equal(d, e.recon["y"])
+
+
+def test_tree_p_program_reads_the_padded_geometry():
+    """The P program's tree geometry: CTU 64 needs both dimensions
+    divisible by 64 (the pipeline pads to whole CTUs), CTU 32 codes a
+    height that is only divisible by 16 with its last CU16 row outside
+    the CU32 layer."""
+    kw = _tree_kw(128, 80, 64, 32)
+    with pytest.raises(AssertionError, match="divisible by 64"):
+        TorchInterEncoder(ParamSets.from_config(EncoderConfig(**kw)),
+                          EncoderConfig(**kw), device="cpu")
+    enc = TorchInterEncoder(ParamSets.from_config(EncoderConfig(
+        **{**kw, "cu_size": 32})), EncoderConfig(**{**kw, "cu_size": 32}),
+        device="cpu")
+    assert (enc.gh, enc.gh2, enc.tree, enc.tree64) == (5, 2, True, False)
+    ufast = dataclasses.replace(EncoderConfig(**_tree_kw(128, 64, 64, 32)),
+                                performance_mode=PerformanceMode.UFAST)
+    enc = TorchInterEncoder(ParamSets.from_config(ufast), ufast,
+                            device="cpu")
+    assert enc.tree and not enc.tree64

@@ -3,6 +3,7 @@ the JAX TpuIntraEncoder at 128x64: modes, levels and recon bit-exact."""
 
 import numpy as np
 import pytest
+import torch
 
 from homerhevc_tpu.config import EncoderConfig as JaxConfig
 from homerhevc_tpu.engine.intra_encoder import TpuIntraEncoder
@@ -11,6 +12,8 @@ from homerhevc_tpu_torch.config import EncoderConfig
 from homerhevc_tpu_torch.engine.intra_encoder import TorchIntraEncoder
 from homerhevc_tpu_torch.hevc.headers import ParamSets
 from tests.conftest import make_yuv
+
+torch.set_num_threads(1)    # one intra-op thread per test worker
 
 
 @pytest.mark.parametrize("deblock", [False, True])

@@ -2,11 +2,13 @@
 package: the decision pass equals TpuIntraTreeEncoder.decide; the encode
 with deblocking equals the golden tree encode + golden deblock (the
 references tests/test_intra_tree.py holds the JAX tree to) at CTU 32 and
-64; the whole slice (tree + deblock + SAO through api.Encoder) gives the
-JAX Encoder's Annex-B bytes and decodes to the port's recon."""
+64; the whole slice (tree + deblock + SAO through api.Encoder, all-intra
+and IPPP) gives the JAX Encoder's Annex-B bytes and decodes to the port's
+recon."""
 
 import numpy as np
 import pytest
+import torch
 
 from homerhevc_tpu.api import Encoder as JaxEncoder
 from homerhevc_tpu.config import EncoderConfig as JaxConfig
@@ -19,7 +21,10 @@ from homerhevc_tpu_torch.engine.intra_tree_encoder import \
 from homerhevc_tpu_torch.hevc.headers import ParamSets
 from tests.conftest import decode_annexb
 from tests.test_intra_tree import _mixed_frame
-from tests.torch_golden import golden_tree
+from tests.torch_golden import assert_p_frames_equal, golden_tree, \
+    torch_p_frame
+
+torch.set_num_threads(1)    # one intra-op thread per test worker
 
 
 def _tree_kw(w, h, qp=32, cu=32, **kw):
@@ -92,14 +97,35 @@ def test_tree_ctu64_stream_decodes_to_recon(tmp_path):
     assert np.array_equal(efs[0].recon["y"], gy.astype(np.uint8))
 
 
-def test_tree_sao_stream_matches_jax_and_decodes(tmp_path):
-    """The slice as a whole, on the configuration of
-    tests/test_intra_tree.py::test_device_tree_sao_pipeline_e2e (96x64,
-    CU32, intra_rdo, SAO + deblocking, one frame in flight): identical
-    Annex-B bytes through both Encoders, SAO on in the noisy frame, and an
-    FFmpeg decode equal to the recon."""
+# the stream tests' configuration: tests/test_intra_tree.py::
+# test_device_tree_sao_pipeline_e2e's (96x64, CU32, intra_rdo, SAO +
+# deblocking, one frame in flight)
+_STREAM_KW = _tree_kw(96, 64, sao=True, deblocking=True)
+
+
+@pytest.fixture(scope="module")
+def jax_tree_encoder():
+    """The JAX intra tree program at the stream tests' shape, traced once
+    for both (tracing its vmapped scan takes minutes on a CPU). It reads
+    only the width, height and QP of its config, which the all-intra and
+    IPPP configurations share."""
+    jcfg = JaxConfig(**_STREAM_KW)
+    return TpuIntraTreeEncoder(JaxParamSets.from_config(jcfg), jcfg)
+
+
+def _jax_encoder(kw, tree_encoder):
+    enc = JaxEncoder(JaxConfig(**kw))
+    enc._pipeline._tpu_intra = tree_encoder
+    return enc
+
+
+def test_tree_sao_stream_matches_jax_and_decodes(tmp_path,
+                                                 jax_tree_encoder):
+    """The slice as a whole, all-intra: identical Annex-B bytes through
+    both Encoders, SAO on in the noisy frame, and an FFmpeg decode equal
+    to the recon."""
     w, h = 96, 64
-    kw = _tree_kw(w, h, sao=True, deblocking=True)
+    kw = _STREAM_KW
     rng = np.random.RandomState(41)
     frames = [_mixed_frame(rng, w, h) for _ in range(2)]
     y2, u2, v2 = frames[1]
@@ -109,7 +135,7 @@ def test_tree_sao_stream_matches_jax_and_decodes(tmp_path):
     def encode(enc):
         return [e for f in frames for e in enc.encode(*f)] + \
             list(enc.flush())
-    want = encode(JaxEncoder(JaxConfig(**kw)))
+    want = encode(_jax_encoder(kw, jax_tree_encoder))
     torch_enc = Encoder(EncoderConfig(**kw), device="cpu")
     sao = []
     emit = torch_enc._pipeline._emit
@@ -128,3 +154,45 @@ def test_tree_sao_stream_matches_jax_and_decodes(tmp_path):
     assert len(dec) == 2
     for d, e in zip(dec, got):
         assert np.array_equal(d, e.recon["y"])
+
+
+def test_tree_ippp_stream_matches_jax_and_decodes(tmp_path,
+                                                  jax_tree_encoder):
+    """BASELINE config 4's shape at a small size, IPPP: the tree I frame
+    and two CTU-32 P frames with deblocking and SAO through both Encoders
+    give identical Annex-B bytes, which decode to the port's recon; the
+    port's P program equals the JAX Encoder's from the same reference."""
+    w, h = 96, 64
+    kw = dict(_STREAM_KW, gop_size=1, intra_period=0,
+              reinit_gop_on_scene_change=False)
+    rng = np.random.RandomState(42)
+    y, u, v = _mixed_frame(rng, w, h)
+    frames = [(np.clip(np.roll(y, 2 * t, 1).astype(int)
+                       + rng.randint(-3, 4, y.shape), 0, 255)
+               .astype(np.uint8), np.roll(u, t, 1), np.roll(v, t, 1))
+              for t in range(3)]
+
+    def encode(enc):
+        return [e for f in frames for e in enc.encode(*f)] + \
+            list(enc.flush())
+    jax_enc = _jax_encoder(kw, jax_tree_encoder)
+    want = encode(jax_enc)
+    got = encode(Encoder(EncoderConfig(**kw), device="cpu"))
+    assert [e.frame_type for e in got] == ["I", "P", "P"]
+    stream = b"".join(e.annex_b() for e in got)
+    assert stream == b"".join(e.annex_b() for e in want)
+    path = tmp_path / "tree_ippp.265"
+    path.write_bytes(stream)
+    dec = decode_annexb(path)
+    assert len(dec) == 3
+    for d, e in zip(dec, got):
+        assert np.array_equal(d, e.recon["y"])
+    # the P program alone: the JAX Encoder's (compiled above) and the
+    # port's, from the first frame's recon
+    ref = tuple(want[0].recon[c] for c in "yuv")
+    jax_p = jax_enc._pipeline._get_tpu_inter().encode_frame(
+        frames[1], ref, 900.0)
+    torch_p = torch_p_frame(kw, frames[1], ref, 900.0)
+    assert_p_frames_equal(jax_p, torch_p)
+    assert (torch_p[0].cu_depth == 0).any(), "no CU32 chosen"
+    assert (torch_p[0].sao_params.type_luma != 0).any()

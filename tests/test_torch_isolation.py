@@ -1,9 +1,11 @@
 """The port stands alone: no module of homerhevc_tpu_torch and no line of
-chip_smoke.py imports jax or the JAX package; a 64x64 I + P encode and an
-intra CU-tree encode, both with SAO, run with both blocked; every
-configuration outside the port's slices raises NotImplementedError when
-the Encoder is built (there is no golden fallback); the Encoder defaults
-to the card."""
+chip_smoke.py imports jax or the JAX package; a 64x64 I + P encode, an
+intra CU-tree encode and a CTU-32 IPPP encode, all with SAO, run with both
+blocked; every configuration outside the port's slices raises
+NotImplementedError when the Encoder is built (there is no golden
+fallback), and the configurations the last slice brought encode on the CPU
+and decode (FFmpeg) to the port's recon; the Encoder defaults to the
+card."""
 
 import ast
 import inspect
@@ -16,7 +18,10 @@ import pytest
 import torch
 
 from homerhevc_tpu_torch.api import Encoder
-from homerhevc_tpu_torch.config import EncoderConfig, RDMode
+from homerhevc_tpu_torch.config import EncoderConfig, PerformanceMode, RDMode
+from tests.conftest import decode_annexb
+
+torch.set_num_threads(1)    # one intra-op thread per test worker
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _FORBIDDEN = ("jax", "homerhevc_tpu")
@@ -75,7 +80,9 @@ def test_port_encodes_with_jax_and_the_jax_package_blocked():
         "c = np.full((32, 32), 128, np.uint8)\n"
         "for kw, want in ((dict(cu_size=16, gop_size=1), ['I', 'P']),\n"
         "                 (dict(cu_size=32, gop_size=0, intra_rdo=True),\n"
-        "                  ['I', 'I'])):\n"
+        "                  ['I', 'I']),\n"
+        "                 (dict(cu_size=32, gop_size=1, intra_rdo=True),\n"
+        "                  ['I', 'P'])):\n"
         "    cfg = EncoderConfig(width=64, height=64, qp=32, sao=True, **kw)\n"
         "    enc = Encoder(cfg, device='cpu')\n"
         "    efs = list(enc.encode(y, c, c))\n"
@@ -87,7 +94,7 @@ def test_port_encodes_with_jax_and_the_jax_package_blocked():
         "    TorchIntraTreeEncoder\n"
         "from homerhevc_tpu_torch.ops import sao_dev\n"
         "print('ok')\n")
-    env = dict(os.environ, PYTHONPATH=_ROOT)
+    env = dict(os.environ, PYTHONPATH=_ROOT, OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
@@ -101,14 +108,16 @@ _TREE = dict(gop_size=0, cu_size=32, intra_rdo=True)
 
 
 @pytest.mark.parametrize("changes,item", [
-    (dict(cu_size=32), "item 1"),
+    # IPPP at CU32 / CU64 without intra_rdo: its I frames have no device
+    # program
+    (dict(cu_size=32), "item 7"),
     (dict(num_b=1), "item 5"),
     (dict(gpb=True), "item 5"),
-    (dict(me_range=64), "item 2"),
-    (dict(intra_in_p=True), "item 3"),
+    (dict(cu_size=64), "item 7"),
+    (dict(intra_rdo=True, cu_size=32, aq_strength=1.0), "item 4"),
     (dict(aq_strength=1.0), "item 4"),
     (dict(rc_ctu=True), "item 4"),
-    (dict(intra_rdo=True, cu_size=32), "item 1"),
+    (dict(intra_rdo=True, cu_size=64, num_b=1), "item 5"),
     (dict(num_ref_frames=2), "item 5"),
     (dict(num_devices=2), "item 6"),
     (dict(_TREE, rd_mode=RDMode.RD_FULL), "item 7"),
@@ -120,14 +129,56 @@ def test_unported_config_raises(changes, item):
         Encoder(EncoderConfig(**{**_BASE, **changes}), device="cpu")
 
 
+_P = PerformanceMode
+
+
+@pytest.mark.parametrize("changes", [
+    pytest.param(dict(intra_rdo=True, cu_size=cu, sao=True,
+                      performance_mode=perf), id=f"cu{cu}-{perf.name}")
+    for cu, perf in ((32, _P.FULL_COMPUTATION), (32, _P.FAST),
+                     (64, _P.FULL_COMPUTATION), (64, _P.FAST),
+                     (64, _P.UFAST))
+] + [pytest.param(dict(me_range=64), id="me_range64"),
+     pytest.param(dict(intra_in_p=True), id="intra_in_p"),
+     pytest.param(dict(intra_rdo=True, cu_size=64, sao=True, me_range=64,
+                       intra_in_p=True), id="cu64-far-intra_in_p")])
+def test_lifted_config_encodes_and_decodes(changes, tmp_path):
+    """Configurations that raised before the CU-tree P program, the FAR
+    level and intra-in-P were ported: IPPP at CTU 32 and 64 with
+    intra_rdo, deblocking, SAO and sign hiding in every performance mode
+    (UFAST at CTU 32 is the FAST program), me_range 64, intra-in-P, and
+    both in the CTU-64 tree encode on the CPU (I + 2 P), and the stream
+    decodes to the port's recon."""
+    yy, xx = np.mgrid[0:64, 0:64]
+    y = (100 + 60 * np.sin(xx / 5.0) + yy).astype(np.uint8)
+    c = np.full((32, 32), 128, np.uint8)
+    cfg = EncoderConfig(**{**_BASE, "deblocking": True, "sign_hiding": True,
+                           **changes})
+    enc = Encoder(cfg, device="cpu")
+    efs = [e for t in range(3) for e in enc.encode(np.roll(y, 3 * t, 1),
+                                                   c, c)]
+    efs += list(enc.flush())
+    assert [e.frame_type for e in efs] == ["I", "P", "P"]
+    path = tmp_path / "lifted.265"
+    path.write_bytes(b"".join(e.annex_b() for e in efs))
+    dec = decode_annexb(path)
+    assert len(dec) == 3
+    for d, e in zip(dec, efs):
+        assert np.array_equal(d, e.recon["y"])
+
+
 def test_slice_check_reads_the_padded_config():
-    """1080p is 1088 lines at CTU 32 and 64: the tree path takes it, as
-    the JAX package does (its check reads the padded config too); SAO on
-    the CU16 paths is covered."""
+    """1080p is 1088 lines at CTU 32 and 64: the tree paths (all-intra and
+    IPPP) take it, as the JAX package does (its check reads the padded
+    config too); SAO on the CU16 paths is covered."""
     for cu in (32, 64):
         Encoder(EncoderConfig(width=1920, height=1080, **{**_TREE,
                                                            "cu_size": cu}),
                 device="cpu")
+        # BASELINE config 4's IPPP shape
+        Encoder(EncoderConfig(width=1920, height=1080, **{
+            **_TREE, "cu_size": cu, "gop_size": 1, "sao": True}),
+            device="cpu")
     Encoder(EncoderConfig(**{**_BASE, "sao": True}), device="cpu")
 
 

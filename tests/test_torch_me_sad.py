@@ -14,6 +14,8 @@ from homerhevc_tpu.ops.pallas.me_sad import (coarse_sweep_sads,
 from homerhevc_tpu_torch.device import LAUNCHES
 from homerhevc_tpu_torch.ops import me_sad as tms
 
+torch.set_num_threads(1)    # one intra-op thread per test worker
+
 
 def _inputs(seed, gh, gw, R, m):
     rng = np.random.RandomState(seed)

@@ -24,6 +24,8 @@ from homerhevc_tpu_torch.ops import pack as tpk
 from homerhevc_tpu_torch.ops import quant as tq
 from homerhevc_tpu_torch.ops import transform as tt
 
+torch.set_num_threads(1)    # one intra-op thread per test worker
+
 
 def _eq(j, t):
     return np.array_equal(np.asarray(j), t.numpy())

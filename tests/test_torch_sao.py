@@ -2,9 +2,10 @@
 equals the JAX function (filtered planes, every parameter, the packed and
 unpacked wire) on content where OFF, band offset and all four edge
 classes occur; the flat CU16 P program with SAO equals the same program
-without SAO followed by the JAX SAO; chip_smoke.py's tree + SAO digest is
-the golden tree's followed by the JAX SAO. The CU16 streams with SAO are
-held to the JAX Encoder in test_torch_e2e.py."""
+without SAO followed by the JAX SAO; chip_smoke.py's tree + SAO digest and
+its IPPP tree digests are the golden encoders' followed by the JAX SAO.
+The CU16 streams with SAO are held to the JAX Encoder in
+test_torch_e2e.py."""
 
 import dataclasses
 import types
@@ -17,6 +18,7 @@ import torch
 
 import chip_smoke
 from homerhevc_tpu.config import EncoderConfig as JaxConfig
+from homerhevc_tpu.golden.inter_frame import encode_inter_frame_tree
 from homerhevc_tpu.hevc import bitstream, cabac, ctx_tables, headers, syntax
 from homerhevc_tpu.hevc import tables as jtables
 from homerhevc_tpu.ops import sao_dev as jsd
@@ -27,6 +29,8 @@ from homerhevc_tpu_torch.ops import sao_dev as tsd
 from homerhevc_tpu_torch.state import reference_from_numpy
 from tests.conftest import make_yuv
 from tests.torch_golden import golden_tree
+
+torch.set_num_threads(1)    # one intra-op thread per test worker
 
 # one compiled JAX program per (shape, ctu) in this process
 _JAX_SAO = jax.jit(jsd.sao_analyze_apply, static_argnums=(6,))
@@ -150,6 +154,24 @@ def test_p_frame_sao_matches_jax_sao():
         assert np.array_equal(getattr(d0, f), getattr(d1, f)), f
 
 
+def _jax_sao(ps, src, rec, qp):
+    """The JAX SAO (decide + apply) of the frame rec coded from src: the
+    filtered planes (numpy) and the host parameters of its wire."""
+    lam = int(np.float32(jtables.RD_LAMBDA_I_TAB[qp]) * 256.0 + 0.5)
+    *out, params = _JAX_SAO(*(jnp.asarray(np.asarray(p, np.int32))
+                              for p in tuple(src) + tuple(rec)),
+                            ps.ctu_size, jnp.int32(lam))
+    h, w = np.asarray(rec[0]).shape
+    sao = jsd.unpack_params(np.asarray(jsd.pack_params(params)),
+                            h // ps.ctu_size, w // ps.ctu_size)
+    return [np.asarray(p) for p in out], sao
+
+
+_HEVC = types.SimpleNamespace(headers=headers, bitstream=bitstream,
+                              cabac=cabac, ctx_tables=ctx_tables,
+                              syntax=syntax)
+
+
 def test_tree_sao_digest_is_golden():
     """chip_smoke.py's "I tree CU32 deblock+SAO" cell: the golden tree +
     golden deblock, then the JAX SAO on its recon, serialized by the JAX
@@ -158,19 +180,47 @@ def test_tree_sao_digest_is_golden():
     cfg = JaxConfig(**chip_smoke.TREE_CFG, **chip_smoke.TREE_CELLS[name])
     ps = headers.ParamSets.from_config(cfg)
     y, u, v = chip_smoke.tree_parity_inputs()
-    desc, ry, ru, rv = golden_tree(ps, y, u, v, cfg.qp)
-    lam = int(np.float32(jtables.RD_LAMBDA_I_TAB[cfg.qp]) * 256.0 + 0.5)
-    *rec, params = _JAX_SAO(*(jnp.asarray(np.asarray(p, np.int32))
-                              for p in (y, u, v, ry, ru, rv)),
-                            ps.ctu_size, jnp.int32(lam))
-    sao = jsd.unpack_params(np.asarray(jsd.pack_params(params)),
-                            cfg.height // ps.ctu_size,
-                            cfg.width // ps.ctu_size)
+    desc, *rec = golden_tree(ps, y, u, v, cfg.qp)
+    rec, sao = _jax_sao(ps, (y, u, v), rec, cfg.qp)
     assert (sao.type_luma != 0).any()
-    hevc = types.SimpleNamespace(headers=headers, bitstream=bitstream,
-                                 cabac=cabac, ctx_tables=ctx_tables,
-                                 syntax=syntax)
     assert chip_smoke.digests(
-        chip_smoke.slice_annexb(hevc, ps, desc, headers.SLICE_I, cfg.qp,
-                                sao),
-        [np.asarray(p) for p in rec]) == chip_smoke.GOLDEN_DIGESTS[name]
+        chip_smoke.slice_annexb(_HEVC, ps, desc, headers.SLICE_I, cfg.qp,
+                                sao), rec) == chip_smoke.GOLDEN_DIGESTS[name]
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.IPPP_CELLS))
+def test_ippp_tree_sao_digests_are_golden(name):
+    """chip_smoke.py's IPPP tree cells (CTU 32 reuses the JAX SAO compile
+    of the cell above): the golden tree I frame, then golden
+    encode_inter_frame_tree P frames from the filtered recon with the I
+    frame's zero-forcing threshold, each frame followed by the JAX SAO
+    (the P program's SAO is that function), serialized by the JAX package,
+    hash to GOLDEN_DIGESTS. The JAX device P program equals golden
+    encode_inter_frame_tree (tests/test_tpu_inter.py, tests/test_cu64.py),
+    and at CTU 32 the JAX Encoder's IPPP stream equals the port's
+    (tests/test_torch_intra_tree.py); at CTU 64 golden is the reference
+    (ROADMAP Queue 3)."""
+    cfg = JaxConfig(**chip_smoke.IPPP_CFG, **chip_smoke.IPPP_CELLS[name])
+    ps = headers.ParamSets.from_config(cfg)
+    frames = chip_smoke.ippp_parity_inputs()
+    desc, *rec = golden_tree(ps, *frames[0], cfg.qp)
+    rec, sao = _jax_sao(ps, frames[0], rec, cfg.qp)
+    stream = [chip_smoke.slice_annexb(_HEVC, ps, desc, headers.SLICE_I,
+                                      cfg.qp, sao)]
+    planes = list(rec)
+    avg = chip_smoke.i_frame_avg_dist(frames[0][0], rec[0])
+    depths = []
+    for poc in (1, 2):
+        desc, *rec = encode_inter_frame_tree(
+            ps, frames[poc], tuple(p.astype(np.int32) for p in rec), cfg.qp,
+            avg_dist=avg)
+        depths.append(desc.cu_depth)
+        rec, sao = _jax_sao(ps, frames[poc], rec, cfg.qp)
+        stream.append(chip_smoke.slice_annexb(_HEVC, ps, desc,
+                                              headers.SLICE_P, cfg.qp, sao,
+                                              poc))
+        planes += rec
+    # some CTB coded as one CU32 / CU64
+    assert any((d < ps.log2_ctu - 4).any() for d in depths)
+    assert chip_smoke.digests(b"".join(stream), planes) == \
+        chip_smoke.GOLDEN_DIGESTS[name]
