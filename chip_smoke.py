@@ -6,19 +6,24 @@ Phases (each fails loudly; the last stdout line is printed only when all
 passed):
   1. build csrc/me_sad.cu with nvcc (sm_90a) and the port's native CABAC
      library (g++);
-  2. the coarse SAD sweep kernel against its plain PyTorch version on the
-     card, bit-exact, at the 720p slice shapes (m=8, R=16), at R=24, at the
-     1080p shapes of path C (1088 coded lines: gh 68, gw 120; and gh 72),
-     on ragged grids, at m=16 and at the 0/255 extremes; kernel times from
-     CUDA events with the L2 cache warm and cold, plain times, and the
-     kernel's bound;
+  2. the coarse SAD sweep kernel's two entry points against their plain
+     PyTorch version on the card, bit-exact: the 8-bit source at the 720p
+     slice shapes (m=8, R=16 and R=24), at the 1080p shapes of paths C and
+     D (1088 coded lines: gh 68, gw 120, R=16 and R=24; and gh 72), on
+     ragged grids, at m=16 and at the 0/255 extremes; the wide source (the
+     B program's bi target, in [-255, 510]) at 720p and 1088 lines R=24,
+     ragged, at m=16 and at its extremes; times from CUDA events with the
+     L2 cache warm and cold, plain times, and the bound;
   3. the port on the card against SHA-256 digests of the JAX package's
      golden encoder at 128x64 (Annex-B bytes and recon planes of an I
      frame with deblocking off and on, of a P frame, of intra CU-tree
      frames at CTU 32 and 64 with deblocking and at CTU 32 with deblocking
      and SAO, and of IPPP tree streams (I + 2 P) at CTU 32 and 64 with
-     deblocking and SAO); the digests are pinned to the JAX package by
-     tests/test_torch_digests.py and tests/test_torch_sao.py;
+     deblocking and SAO; pinned to the JAX package by
+     tests/test_torch_digests.py and tests/test_torch_sao.py), and of the
+     JAX package's Encoder at 128x96 (IBP at CTU 32 with bi anchors, IBP
+     at CTU 64 with uni-L0 B frames, generalized-B at CTU 32 with two
+     references);
   4. the main paths through homerhevc_tpu_torch.api.Encoder, each with the
      kernel launch counts set to 0 just before and read just after it:
      720p IPPP CU16 (1 I + 15 P; its first two frames re-encoded on the
@@ -30,16 +35,22 @@ passed):
      frames equal on the CPU) (slice 2); path C, 1080p IPPP (1 I + 7 P)
      with intra_rdo, deblocking and SAO at CTU 64 and at CTU 32 FAST (the
      sweep launched once per P frame, some CTBs coded as CU32 / CU64, the
-     I and first P frame of CTU 64 equal on the CPU) (slice 3); neither
-     jax nor homerhevc_tpu may be imported;
+     I and first P frame of CTU 64 equal on the CPU) (slice 3); path D,
+     1080p IBP at CTU 32 (I0 P2 B1 A4 B3 A6 B5 A8 B7, every frame after P2
+     bi-capable, the sweep's 8-bit entry point once per P and twice per
+     bi frame, its wide one once per bi frame, some 8x8 units coded bi,
+     I0 P2 B1 A4 equal on the CPU) (slice 4); neither jax nor
+     homerhevc_tpu may be imported;
   5. where the time goes: one I and one P frame of slice 1, a P frame
      with SAO and two CTU-64 P frames of path C under torch.profiler, and
-     the aten ops of a path-C P frame; one 1080p tree frame split by stage
+     the aten ops of a path-C P frame; one bi frame of path D counted by
+     aten op and under torch.profiler; one 1080p tree frame split by stage
      (decide, wavefront, deblock, SAO, pack), timed and its aten ops
      counted, then torch.profiler over the decision pass and the first 8
      wavefront steps.
-Then the kernel table (JSON; launches are those of the IPPP runs of
-phase 4), the card's name and power limit, and the result line.
+Then the kernel table (JSON, one entry per entry point; launches are
+those of the main paths of phase 4), the card's name and power limit,
+and the result line.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -62,6 +73,8 @@ W_TREE, H_TREE = 1920, 1080   # path A: all-intra CU tree at 1080p
 F_TREE = 4                    # frames in flight, one batch
 N_SAO = 8                     # path B: 720p IPPP CU16 + SAO, 1 I + 7 P
 N_PATH_C = 8                  # path C: 1080p IPPP tree + SAO, 1 I + 7 P
+N_PATH_D = 9                  # path D: 1080p IBP CTU 32, I0 P2 B1 A4 ... B7
+N_PATH_D_CPU = 4              # I0 P2 B1 A4 re-encoded on the CPU
 PROFILE_STEPS = 8             # wavefront steps under torch.profiler
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64       # Hopper SM: 64 INT32 lanes per clock
@@ -87,6 +100,22 @@ IPPP_CFG = dict(width=128, height=64, qp=32, gop_size=1, intra_period=0,
                 intra_rdo=True, deblocking=True, sao=True, sign_hiding=True)
 IPPP_CELLS = {"IPPP tree CU32 deblock+SAO": dict(cu_size=32),
               "IPPP tree CU64 deblock+SAO": dict(cu_size=64)}
+# the B cells: streams of the bench clip at 128x96 through the Encoder
+# (I frames of the intra tree, deblocking, sign hiding, QP 32): IBP at CTU
+# 32 with SAO (6 frames, I0 P2 B1 A4 B3 P5: a bi-predicted anchor, bi B
+# frames, a trailing P), IBP at CTU 64 (5 frames, I0 P2 B1 P4 B3: uni-L0
+# B frames) and generalized-B at CTU 32 with two references and SAO (4
+# frames, I0 P1 B2 B3); digests of the JAX package's Encoder on the CPU
+# (tests/torch_golden.py jax_b_stream_digests): B_DIGESTS
+B_CFG = dict(width=128, height=96, qp=32, intra_rdo=True, deblocking=True,
+             sign_hiding=True, intra_period=0,
+             reinit_gop_on_scene_change=False)
+B_CELLS = {
+    "IBP CTU 32 bi anchors": (dict(cu_size=32, gop_size=2, sao=True), 6),
+    "IBP CTU 64 uni-L0 B": (dict(cu_size=64, gop_size=2, sao=False), 5),
+    "GPB CTU 32 two refs": (dict(cu_size=32, gop_size=1, num_ref_frames=2,
+                                 sao=True), 4),
+}
 GOLDEN_DIGESTS = {
     "I deblock=0": (
         "75cc9191de8a647a6a5b50d8b8a68a91c032bcd80b960d6c7e38399cab84f7fe",
@@ -112,6 +141,17 @@ GOLDEN_DIGESTS = {
     "IPPP tree CU64 deblock+SAO": (
         "86bd89a6bc13c9788a3f2a263ce8fac4ea69f7a511ce21eca926ac5d55e5fcbc",
         "314c412ed45a2ac007d282a8ce4b4c2a15f1c66d633464ff0255fd7912480592"),
+}
+B_DIGESTS = {
+    "IBP CTU 32 bi anchors": (
+        "b13bbcd2426487cd92d878dc58e34af35ece3690ae942cb8e0128c17f7f6f049",
+        "0d4beb095e0e02f96371a6ce90d9820c10320ac6bd04bebf69f3c9fbb1b7517c"),
+    "IBP CTU 64 uni-L0 B": (
+        "2a678c2bc0333fac4d33bf75209cb4c542bcc8ac34f3878857d55d6f7de8cbe8",
+        "70a9aac5799ed44fa0c6cf923880425e702c60f17816e3d533c341e3d132a276"),
+    "GPB CTU 32 two refs": (
+        "3bcc781869b48f3c3e092b2da0b41669c92916c8035f818766bd7f1345788510",
+        "cd9247364373e9cd63865cb5a429a5c874e1865b250bd501592ad4e754ed84b1"),
 }
 
 
@@ -192,36 +232,51 @@ def phase_build():
         f"native CABAC (g++): {t_n:.2f} s")
 
 
-def sweep_inputs(frames, R, m=8, gh=None, gw=None):
+def sweep_inputs(frames, R, m=8, gh=None, gw=None, wide=False):
     """Decimated source / edge-padded decimated reference as the P path
-    builds them (uint8 on the card), cut to gh x gw blocks of m x m."""
+    builds them (uint8 on the card), cut to gh x gw blocks of m x m. wide:
+    the source is a B program's bi target instead, 2 * src - pred (int16),
+    spanning [-255, 510]: the prediction is the earlier frame's negative,
+    and two 32x32 areas are black against a white prediction and white
+    against a black one."""
     from homerhevc_tpu_torch.engine.inter_encoder import pad_edge
     dev = torch.device(DEV)
 
-    def decim(p):
-        q = torch.as_tensor(p, device=dev).to(torch.int32)
+    def plane(p):
+        return torch.as_tensor(p, device=dev).to(torch.int32)
+
+    def decim(q):
         return (q[0::2, 0::2] + q[1::2, 0::2] + q[0::2, 1::2]
                 + q[1::2, 1::2] + 2) >> 2
-    sd = decim(frames[1][0])
-    rd = decim(frames[0][0])
+    src = plane(frames[1][0])
+    if wide:
+        pred = 255 - plane(frames[0][0])
+        src, pred = src.clone(), pred.clone()
+        src[:32, :32], pred[:32, :32] = 0, 255
+        src[:32, 32:64], pred[:32, 32:64] = 255, 0
+        src = 2 * src - pred
+    sd = decim(src)
+    rd = decim(plane(frames[0][0]))
     gh = sd.shape[0] // m if gh is None else gh
     gw = sd.shape[1] // m if gw is None else gw
     sd, rd = sd[:gh * m, :gw * m], rd[:gh * m, :gw * m]
     rp = pad_edge(rd.to(torch.uint8), R, R).contiguous()
-    return sd.to(torch.uint8).contiguous(), rp
+    return sd.to(torch.int16 if wide else torch.uint8).contiguous(), rp
 
 
-def sweep_bound(sd, rp, R, m):
+def sweep_bound(sd, rp, R, m, extra_bytes=0):
     """Least time (ms) of one sweep on this card and what bounds it: the
     larger of the bytes time (each input byte read and each int32 output
-    written once at the HBM rate) and the operations time (2 operations,
+    written once at the HBM rate; extra_bytes: the wide entry point's
+    per-block excess) and the operations time (2 operations,
     |a - b| and the add, per 8-bit sample pair at the integer lanes' rate
     for packed bytes: SMs x 64 lanes x the maximum SM clock x 8 operations
     per vabsdiff4 .add). A SAD cannot use the tensor cores, so their int8
     peak is no rate for it. Returns (bound, "bytes" or "operations",
     operations time)."""
     side = 2 * R + 1
-    nbytes = sd.numel() + rp.numel() + 4 * side * side * sd.numel() // (m * m)
+    nbytes = (sd.numel() * sd.element_size() + rp.numel() + extra_bytes
+              + 4 * side * side * sd.numel() // (m * m))
     ops = 2 * side * side * sd.numel()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
@@ -233,23 +288,40 @@ def sweep_bound(sd, rp, R, m):
 
 
 def phase_kernel(frames, frames_1152):
-    """The sweep kernel against its plain version (frames: the 720p clip;
-    frames_1152: the clip at 1920x1152, cut to path C's 1088 coded lines
-    (gh 68) and to gh 72)."""
+    """The sweep kernel's entry points against their plain version (frames:
+    the 720p clip; frames_1152: the clip at 1920x1152, cut to the 1088
+    coded lines of paths C and D (gh 68) and to gh 72): the 8-bit source
+    of the P program and of the B program's searches against the source,
+    and the wide source (the bi target, in [-255, 510]) of the B program's
+    list-1 search. The wide rows time the kernel alone from its inputs
+    (the clamped source and the blocks' excess), and beside it the
+    wrapper, which computes those with PyTorch launches first."""
     from homerhevc_tpu_torch.device import LAUNCHES
+    from homerhevc_tpu_torch.ops import me_sad
     from homerhevc_tpu_torch.ops.me_sad import (coarse_sweep_sads,
                                                 coarse_sweep_sads_plain)
     rows = {}
-    before = LAUNCHES["coarse_sweep_sads"]
-    cases = [("720p R=16", frames, 16, 8, None, None, True),
-             ("720p R=24", frames, 24, 8, None, None, True),
-             ("1088 lines R=16", frames_1152, 16, 8, 68, 120, True),
-             ("1152 lines R=16", frames_1152, 16, 8, 72, 120, True),
-             ("ragged 3x5 R=16", frames, 16, 8, 3, 5, False),
-             ("ragged 1x37 R=13", frames, 13, 8, 1, 37, False),
-             ("m=16 22x40 R=24", frames, 24, 16, None, None, False)]
-    for label, clip, R, m, gh, gw, timed in cases:
-        sd, rp = sweep_inputs(clip, R, m, gh, gw)
+    before = dict(LAUNCHES)
+    cases = [("720p R=16", frames, 16, 8, None, None, True, False),
+             ("720p R=24", frames, 24, 8, None, None, True, False),
+             ("1088 lines R=16", frames_1152, 16, 8, 68, 120, True, False),
+             ("1088 lines R=24", frames_1152, 24, 8, 68, 120, True, False),
+             ("1152 lines R=16", frames_1152, 16, 8, 72, 120, True, False),
+             ("wide 720p R=24", frames, 24, 8, None, None, True, True),
+             ("wide 1088 lines R=24", frames_1152, 24, 8, 68, 120, True,
+              True),
+             ("ragged 3x5 R=16", frames, 16, 8, 3, 5, False, False),
+             ("ragged 1x37 R=13", frames, 13, 8, 1, 37, False, False),
+             ("wide ragged 3x5 R=16", frames, 16, 8, 3, 5, False, True),
+             ("m=16 22x40 R=24", frames, 24, 16, None, None, False, False),
+             ("wide m=16 22x40 R=24", frames, 24, 16, None, None, False,
+              True)]
+    for label, clip, R, m, gh, gw, timed, wide in cases:
+        sd, rp = sweep_inputs(clip, R, m, gh, gw, wide)
+        if wide:
+            check((int(sd.min()), int(sd.max())) == (-255, 510),
+                  f"{label}: the bi target spans [{int(sd.min())}, "
+                  f"{int(sd.max())}], not [-255, 510]")
         side = 2 * R + 1
         got = coarse_sweep_sads(sd, rp, R, m)
         torch.cuda.synchronize()
@@ -259,17 +331,33 @@ def phase_kernel(frames, frames_1152):
         if not torch.equal(got, want):
             raise AssertionError(f"kernel != plain at {label}")
         err = int((got - want).abs().max())
-        msg = (f"[kernel] {label}: sd {tuple(sd.shape)} ref_pad "
+        msg = (f"[kernel] {label}: sd {tuple(sd.shape)} {sd.dtype} in "
+               f"[{int(sd.min())}, {int(sd.max())}], ref_pad "
                f"{tuple(rp.shape)} -> {tuple(got.shape)}; kernel == plain "
                f"(bit-exact, max_abs_err {err})")
         if timed:
-            def sweep():
-                return coarse_sweep_sads(sd, rp, R, m)
+            if wide:
+                # the kernel alone, from the wide entry point's inputs (the
+                # clamped source and the blocks' excess); the wrapper
+                # computes those with PyTorch launches first
+                clamped, excess = me_sad.wide_parts(sd, m)
+                out = torch.empty_like(got)
+                lib = me_sad.build()
+
+                def sweep():
+                    me_sad.launch(lib, clamped, rp, out, R, m, excess)
+                wrapper_ms = cuda_ms_cold(
+                    lambda: coarse_sweep_sads(sd, rp, R, m), 200)
+                bound_ms, bound_by, ops_ms = sweep_bound(
+                    clamped, rp, R, m, extra_bytes=4 * excess.numel())
+            else:
+                def sweep():
+                    return coarse_sweep_sads(sd, rp, R, m)
+                bound_ms, bound_by, ops_ms = sweep_bound(sd, rp, R, m)
             warm_ms = cuda_ms(sweep, 400)
             ms = cuda_ms_cold(sweep, 200)
             plain_ms = cuda_ms(
                 lambda: coarse_sweep_sads_plain(sd, rp, R, m), 3)
-            bound_ms, bound_by, ops_ms = sweep_bound(sd, rp, R, m)
             rows[label] = (err, ms, plain_ms, bound_ms, bound_by)
             msg += (f"; kernel {ms:.4f} ms with the L2 cold, "
                     f"{warm_ms:.4f} ms warm; bound {bound_ms:.4f} ms "
@@ -277,11 +365,17 @@ def phase_kernel(frames, frames_1152):
                     f"{100 * bound_ms / ms:.1f}% of the bound cold, "
                     f"{100 * bound_ms / warm_ms:.1f}% warm; plain "
                     f"{plain_ms:.4f} ms")
+            if wide:
+                msg += (f"; the wrapper (clamp and excess, then the "
+                        f"kernel) {wrapper_ms:.4f} ms cold")
         log(msg)
-    # the extremes: every |difference| is 0 or 255
+    # the extremes: every |difference| is 0 or 255 (8-bit), up to 510
+    # (wide)
     sd, rp = sweep_inputs(frames, 16)
-    for s_val, r_val in ((0, 255), (255, 0), (255, 255)):
-        a = torch.full_like(sd, s_val)
+    for s_val, r_val in ((0, 255), (255, 0), (255, 255), (-255, 255),
+                         (510, 0)):
+        dt = torch.uint8 if 0 <= s_val <= 255 else torch.int16
+        a = torch.full(sd.shape, s_val, dtype=dt, device=sd.device)
         b = torch.full_like(rp, r_val)
         got = coarse_sweep_sads(a, b, 16, 8)
         torch.cuda.synchronize()
@@ -289,8 +383,9 @@ def phase_kernel(frames, frames_1152):
               f"kernel != plain at sd={s_val} ref={r_val}")
         check(int(got.max()) == abs(s_val - r_val) * 64, int(got.max()))
     log(f"[kernel] 720p R=16 extremes (sd, ref) = (0, 255), (255, 0), "
-        f"(255, 255): kernel == plain; launches in this phase "
-        f"{LAUNCHES['coarse_sweep_sads'] - before}")
+        f"(255, 255) 8-bit, (-255, 255), (510, 0) wide: kernel == plain; "
+        f"launches in this phase " + ", ".join(
+            f"{k} {LAUNCHES[k] - before[k]}" for k in LAUNCHES))
     return rows
 
 
@@ -443,14 +538,33 @@ def port_digests(device):
     return out
 
 
+def b_stream_digests(encode):
+    """Digests of the B cells' streams: encode(kw, frames) returns the
+    EncodedFrames of the configuration kw (keyword arguments of an
+    EncoderConfig) in decode order."""
+    out = {}
+    for name, (cell, n) in B_CELLS.items():
+        efs = encode({**B_CFG, **cell}, bench_frames(n, w=128, h=96))
+        out[name] = digests(b"".join(e.annex_b() for e in efs),
+                            [e.recon[c] for e in efs for c in "yuv"])
+    return out
+
+
 def phase_digests():
+    from homerhevc_tpu_torch.api import Encoder
+    from homerhevc_tpu_torch.config import EncoderConfig
     got = port_digests(DEV)
-    for k, want in GOLDEN_DIGESTS.items():
+    got.update(b_stream_digests(lambda kw, frames: encode_all(
+        Encoder(EncoderConfig(**kw), device=DEV), frames)))
+    for k, want in {**GOLDEN_DIGESTS, **B_DIGESTS}.items():
         check(got[k] == want, f"{k}: port {got[k]} != golden {want}")
     log("[parity] 128x64 on the card: I frame (deblock off/on), P frame, "
         "intra tree (CU32 / CU64 deblock, CU32 deblock+SAO) and IPPP tree "
         "streams (I + 2 P, CU32 / CU64 deblock+SAO) == the JAX golden "
-        "encoder's SHA-256 digests (Annex-B bytes and recon planes)")
+        "encoder's SHA-256 digests (Annex-B bytes and recon planes); "
+        "128x96 through api.Encoder: IBP CTU 32 with bi anchors, IBP CTU "
+        "64 with uni-L0 B, generalized-B CTU 32 with two references == "
+        "the JAX Encoder's digests")
 
 
 def encode_all(enc, frames):
@@ -720,6 +834,109 @@ def phase_path_c(frames):
     return sweeps
 
 
+def ibp_config(w, h):
+    """Path D: IBP (gop_size 2, one B between anchors) at CTU 32 with
+    intra_rdo, deblocking, SAO, sign hiding, QP 32 and me_range 32 (the IBP
+    search range is 24), one IDR and no scene-cut check."""
+    from homerhevc_tpu_torch.config import EncoderConfig
+    return EncoderConfig(width=w, height=h, cu_size=32, gop_size=2, qp=32,
+                         intra_rdo=True, sign_hiding=True, deblocking=True,
+                         sao=True, me_range=32, intra_period=0,
+                         reinit_gop_on_scene_change=False)
+
+
+def first_frames(enc, frames, n):
+    """The first n EncodedFrames enc gives for frames (decode order),
+    without coding the rest."""
+    out = []
+    for f in frames:
+        for e in enc.encode(*f):
+            out.append(e)
+            if len(out) == n:
+                return out
+    raise AssertionError(f"{len(out)} frames out of {len(frames)} pushed")
+
+
+def phase_path_d(frames):
+    """Path D on the card: 1080p IBP at CTU 32, I0 P2 B1 A4 B3 A6 B5 A8 B7
+    (every frame after P2 runs the bi-capable program), after a 256x128
+    warm-up of the same configuration; the sweep runs once per P frame
+    and three times per bi frame (twice on the source, once wide on the
+    bi target); I0 P2 B1 A4 re-encoded on the CPU give the same Annex-B
+    bytes; one bi frame under torch.profiler and counted by aten op.
+    Returns the launches of the sweep's two entry points."""
+    from homerhevc_tpu_torch.api import Encoder
+    from homerhevc_tpu_torch.device import LAUNCHES, reset_launches
+    from homerhevc_tpu_torch.tools.p_frame_ops import count_b_frame
+    from homerhevc_tpu_torch.utils.profiler import PROFILER
+    encode_all(Encoder(ibp_config(256, 128)), bench_frames(5, w=256, h=128))
+    torch.cuda.synchronize()
+    enc = Encoder(ibp_config(W_TREE, H_TREE))
+    pipe = enc._pipeline
+    descs, emitted = [], []
+    emit = pipe._emit
+
+    def spy(desc, *a, **k):
+        descs.append(desc)
+        ef = emit(desc, *a, **k)
+        emitted.append(time.perf_counter())
+        return ef
+    pipe._emit = spy
+    PROFILER.reset()
+    reset_launches()
+    t = time.perf_counter()
+    efs = encode_all(enc, frames)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    dt = t_end - t
+    launches = dict(LAUNCHES)
+    check([e.poc for e in efs] == [0, 2, 1, 4, 3, 6, 5, 8, 7],
+          [e.poc for e in efs])
+    check([e.frame_type for e in efs] == ["I", "P"] + ["B"] * 7,
+          [e.frame_type for e in efs])
+    n_bi = N_PATH_D - 2
+    check(launches["coarse_sweep_sads"] == 1 + 2 * n_bi, launches)
+    check(launches["coarse_sweep_sads_wide"] == n_bi, launches)
+    by_poc = sorted(efs, key=lambda e: e.poc)
+    mean_psnr = check_frames(by_poc, frames,
+                             [e.frame_type for e in by_poc])
+    share = float(np.mean([(d.inter_dir == 3).mean() for d in descs[2:]]))
+    check(0.0 < share, "no 8x8 unit coded bi")
+    bits = [e.bits for e in efs]
+    steps = zip(emitted[1:], emitted[2:])        # each bi frame's wall
+    log(f"[path D] 1080p IBP CTU 32 intra_rdo qp32 deblock+SAO, search "
+        f"{pipe._inter().search}: {N_PATH_D} frames (I0 P2 B1 A4 B3 A6 B5 "
+        f"A8 B7) in {dt:.3f} s = {N_PATH_D / dt:.4f} fps; I frame "
+        f"{emitted[0] - t:.3f} s, P2 {(emitted[1] - emitted[0]) * 1e3:.1f} "
+        f"ms, bi frames {(t_end - emitted[1]) / n_bi * 1e3:.1f} ms each "
+        f"({', '.join(f'{(b - a) * 1e3:.0f}' for a, b in steps)} ms); "
+        f"bits/frame {np.mean(bits):.0f} (I {bits[0]}, P2 {bits[1]}, "
+        f"anchors {np.mean(bits[3::2]):.0f}, B {np.mean(bits[2::2]):.0f}); "
+        f"luma PSNR {mean_psnr:.2f} dB; 8x8 units coded bi in the bi "
+        f"frames {100 * share:.1f}%; sweep launches {launches}")
+    log("[path D] host scopes:\n" + PROFILER.report())
+    pe = pipe._inter()
+    src = pipe._pad_frame(*frames[7])
+    ref0, ref1 = pipe._anchor_m2, pipe._last_recon
+    ops, compute = count_b_frame(pe, src, ref0, ref1)
+    log(f"[path D] one bi frame: {ops} aten ops, {compute} not views")
+    n_k, busy, wall = profile_window(
+        "path D, one bi frame (dispatch_b)",
+        lambda: pe.dispatch_b(src, ref0, ref1))
+    log(f"[path D] one bi frame: {n_k} kernels, device busy {busy:.2f} ms "
+        f"of {wall:.2f} ms")
+    t = time.perf_counter()
+    cpu = first_frames(Encoder(ibp_config(W_TREE, H_TREE), device="cpu"),
+                       frames, N_PATH_D_CPU)
+    check(b"".join(e.annex_b() for e in cpu)
+          == b"".join(e.annex_b() for e in efs[:N_PATH_D_CPU]),
+          "CUDA path D stream != CPU stream")
+    log(f"[path D] I0 P2 B1 A4 re-encoded on the CPU (plain path, "
+        f"{time.perf_counter() - t:.1f} s): Annex-B bytes identical")
+    return (launches["coarse_sweep_sads"],
+            launches["coarse_sweep_sads_wide"])
+
+
 def phase_tree_stages(frame):
     """Where path A's time goes: one 1080p CU32 tree frame split by stage
     (decide, wavefront, deblock, SAO, pack), first timed (the card
@@ -853,25 +1070,32 @@ def main():
     rows = phase_kernel(frames, bench_frames(2, w=W_TREE, h=1152))
     phase_digests()
     launches = phase_main_path(frames)
-    tree_frames = bench_frames(N_PATH_C, w=W_TREE, h=H_TREE)
+    tree_frames = bench_frames(N_PATH_D, w=W_TREE, h=H_TREE)
     phase_tree_path(tree_frames[:F_TREE])
     sao_launches = phase_sao_ippp(frames)
-    path_c_launches = phase_path_c(tree_frames)
+    path_c_launches = phase_path_c(tree_frames[:N_PATH_C])
+    path_d_launches, wide_launches = phase_path_d(tree_frames)
     phase_profile(frames)
     phase_tree_stages(tree_frames[0])
     for name in ("jax", "homerhevc_tpu"):
         check(name not in sys.modules, f"{name} was imported")
     log("[isolation] neither jax nor homerhevc_tpu was imported")
-    err, ms, plain_ms, bound_ms, bound_by = rows["720p R=16"]
-    print(json.dumps({"kernels": [{
-        "name": "coarse_sweep_sads", "route": "cuda",
-        "source": "homerhevc_tpu_torch/csrc/me_sad.cu",
-        "replaces": "homerhevc_tpu/ops/pallas/me_sad.py:35",
-        "launches": (launches["coarse_sweep_sads"] + sao_launches
-                     + path_c_launches),
-        "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}), flush=True)
+    kernels = []
+    for name, row, n in (
+            ("coarse_sweep_sads", "720p R=16",
+             launches["coarse_sweep_sads"] + sao_launches + path_c_launches
+             + path_d_launches),
+            ("coarse_sweep_sads_wide", "wide 1088 lines R=24",
+             wide_launches)):
+        err, ms, plain_ms, bound_ms, bound_by = rows[row]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "homerhevc_tpu_torch/csrc/me_sad.cu",
+            "replaces": "homerhevc_tpu/ops/pallas/me_sad.py:35",
+            "launches": n, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

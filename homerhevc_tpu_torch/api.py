@@ -73,7 +73,10 @@ class Encoder:
     def encode(self, y: np.ndarray, u: np.ndarray,
                v: np.ndarray) -> Iterator[EncodedFrame]:
         """Submit one YUV420 8-bit frame; yields finished frames (possibly
-        none yet while the pipeline fills)."""
+        none yet while the pipeline fills) in decode order: under IBP each
+        B frame comes after the anchor that follows it in display order.
+        EncodedFrame.poc is the display index, frame_type "I", "P" or
+        "B"."""
         yield from self._pipeline.push(y, u, v)
 
     def flush(self) -> Iterator[EncodedFrame]:

@@ -8,6 +8,16 @@
 // gy, gx] as int32 (side = 2R + 1): the layout the JAX function returns.
 // Samples are 8-bit (uint8); m is a multiple of 8.
 //
+// A wide source (the bi-prediction target 2 * src - pred of the B
+// program, in [-255, 510]) takes the second entry point. For a reference
+// sample r in [0, 255] and any integer s,
+//   |s - r| = |clamp(s, 0, 255) - r| + |s - clamp(s, 0, 255)|,
+// so the block SAD at every offset is the 8-bit SAD of the clamped source
+// plus the block's excess, one constant per block that does not depend on
+// the offset. The wrapper passes the clamped source as uint8 and the
+// excess as int32 (gh, gw); the kernel adds it in the store epilogue, so
+// the inner loop and the staging are the same for both entry points.
+//
 // What bounds it: at 720p (m = 8, R = 16) one P frame reads 0.46 MB of
 // `sd` and 0.53 MB of `ref_pad` and writes a 15.7 MB int32 result: 16.2 MB,
 // 4.8 us at 3.35 TB/s. Its 251 M |a - b| + acc pairs take 63 M packed-byte
@@ -36,7 +46,8 @@
 //    5 x 45 x 6 = 1350 blocks of 480 threads.
 //    Each block stages its source tile and the reference band of its dy
 //    chunk in shared memory once (a few KB).
-// Sums fit int32: 255 * m * m < 2^31 for every m the planes allow.
+// Sums fit int32: 255 * m * m < 2^31 for every m the planes allow, and
+// the excess of an int16 source adds at most 32768 * m * m.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -63,6 +74,7 @@ __device__ __forceinline__ uint32_t sad4(uint32_t a, uint32_t b,
 
 __global__ void coarse_sweep_kernel(const uint8_t* __restrict__ sd,
                                     const uint8_t* __restrict__ ref_pad,
+                                    const int32_t* __restrict__ excess,
                                     int32_t* __restrict__ out,
                                     int gh, int gw, int m, int R, int nruns,
                                     int dyc) {
@@ -124,11 +136,13 @@ __global__ void coarse_sweep_kernel(const uint8_t* __restrict__ sd,
     }
   }
   const size_t plane = (size_t)gh * gw;
-  int32_t* o = out + (size_t)(dy * side + dx0) * plane + (size_t)gy * gw
-      + gx0 + b;
+  const size_t cell = (size_t)gy * gw + gx0 + b;
+  // the wide entry point's per-block excess (0 for an 8-bit source)
+  const int32_t e = excess != nullptr ? excess[cell] : 0;
+  int32_t* o = out + (size_t)(dy * side + dx0) * plane + cell;
 #pragma unroll
   for (int d = 0; d < kRun; ++d) {
-    if (dx0 + d < side) o[d * plane] = (int32_t)acc[d];
+    if (dx0 + d < side) o[d * plane] = (int32_t)acc[d] + e;
   }
 }
 
@@ -154,15 +168,8 @@ Geometry geometry(int m, int R) {
   return g;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches the sweep on `stream`; returns cudaGetLastError() as an int
-// (0 on success). Pointers are device pointers to contiguous arrays:
-// sd and ref_pad uint8, out int32.
-int coarse_sweep_sads_launch(const void* sd, const void* ref_pad, void* out,
-                             int gh, int gw, int m, int R, void* stream) {
+int launch(const void* sd, const void* ref_pad, const void* excess,
+           void* out, int gh, int gw, int m, int R, void* stream) {
   const Geometry g = geometry(m, R);
   if (m % 8 != 0 || kTile * g.nruns > 1024) return (int)cudaErrorInvalidValue;
   if (g.smem > 48 * 1024) {
@@ -176,8 +183,32 @@ int coarse_sweep_sads_launch(const void* sd, const void* ref_pad, void* out,
   coarse_sweep_kernel<<<grid, block, g.smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(sd), static_cast<const uint8_t*>(ref_pad),
-      static_cast<int32_t*>(out), gh, gw, m, R, g.nruns, g.dyc);
+      static_cast<const int32_t*>(excess), static_cast<int32_t*>(out), gh, gw,
+      m, R, g.nruns, g.dyc);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry point launches the sweep on `stream` and returns
+// cudaGetLastError() as an int (0 on success). Pointers are device
+// pointers to contiguous arrays: sd and ref_pad uint8, excess and out
+// int32.
+
+// An 8-bit source.
+int coarse_sweep_sads_launch(const void* sd, const void* ref_pad, void* out,
+                             int gh, int gw, int m, int R, void* stream) {
+  return launch(sd, ref_pad, nullptr, out, gh, gw, m, R, stream);
+}
+
+// A wide source: sd is its clamp to [0, 255], excess (gh, gw) the sum of
+// |s - clamp(s, 0, 255)| over each block.
+int coarse_sweep_sads_wide_launch(const void* sd, const void* ref_pad,
+                                  const void* excess, void* out, int gh,
+                                  int gw, int m, int R, void* stream) {
+  return launch(sd, ref_pad, excess, out, gh, gw, m, R, stream);
 }
 
 }  // extern "C"

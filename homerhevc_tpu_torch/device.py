@@ -16,7 +16,9 @@ torch.backends.cudnn.allow_tf32 = False
 
 # launches of each hand-written kernel; a wrapper adds one where it
 # launches its kernel and nowhere else (the plain CPU version never counts)
-LAUNCHES: dict[str, int] = {"coarse_sweep_sads": 0}
+# (the sweep's 8-bit and wide-source entry points count apart)
+LAUNCHES: dict[str, int] = {"coarse_sweep_sads": 0,
+                            "coarse_sweep_sads_wide": 0}
 
 
 def reset_launches() -> None:

@@ -1,7 +1,8 @@
-"""P-frame encoder (PyTorch port of the uni-predicted program of
-homerhevc_tpu/engine/inter_encoder.py TpuInterEncoder).
+"""Inter-frame encoder (PyTorch port of homerhevc_tpu/engine/inter_encoder.py
+TpuInterEncoder): the uni-predicted P program (_impl) and the bi-capable
+program of B and generalized-B frames (_impl_b).
 
-All CUs of a P frame are one batch (no intra-frame dependency): a
+All CUs of a frame are one batch (no intra-frame dependency): a
 hierarchical full-pel search (2x-decimated coarse sweep -> top-K votes ->
 shortlist + exact +-4 fine sweep at full resolution, with the 4x-decimated
 FAR level when me_range > 32), half/quarter-pel refinement, luma MC +
@@ -10,15 +11,18 @@ residual, the CU32 / CU64 layers of the CU tree at CTU 32 / 64 (each CTB
 coded once as one CU and kept where it wins SSD + lambda * rate; FAST
 masks that by the fast-skip predicate and UFAST drops the CU64 layer),
 the intra-in-P fallback, BS-map deblocking, device SAO and the compact
-wire. Bit-exact to the JAX program and to golden encode_inter_frame
-(merge_rd="fast") / encode_inter_frame_tree.
+wire. The bi-capable program searches both references (list 1 also
+against the bi target 2 * src - pred0, a plane that leaves [0, 255]) and
+picks uni-L0, uni-L1 or the 14-bit bi average per CU at CU16 and CU32.
+Bit-exact to the JAX programs and to golden encode_inter_frame
+(merge_rd="fast") / encode_inter_frame_tree / encode_b_frame_tree.
 
 The coarse sweep runs the hand-written CUDA kernel on a CUDA device
-(ops/me_sad.py); there is no gate at the call site.
+(ops/me_sad.py: the 8-bit entry point for source planes, the wide one for
+the bi target); there is no gate at the call site.
 
 Not ported yet (the pipeline refuses such configs, engine/pipeline.py
-unported): per-CTB QP maps (AQ, row-RC) and the bi-predicted program
-(B, GPB, multi-reference).
+unported): per-CTB QP maps (AQ, row-RC).
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ from homerhevc_tpu_torch.engine.intra_encoder import (DevicePlane, _sh1,
 from homerhevc_tpu_torch.ops import intra as dip
 from homerhevc_tpu_torch.ops.deblock import deblock_chroma_bs, deblock_luma_bs
 from homerhevc_tpu_torch.ops.interp import (LUMA_TAPS, extract_patches,
-                                            mc_chroma_batch)
+                                            mc_chroma_batch,
+                                            mc_chroma_batch_14)
 from homerhevc_tpu_torch.ops.me_sad import coarse_sweep_sads
 from homerhevc_tpu_torch.ops.pack import (cg_cap, esc_capacity,
                                           pack_capacity, pack_sparse_cg)
@@ -140,6 +145,14 @@ def _unblock(b: torch.Tensor, n: int, hh: int, ww: int) -> torch.Tensor:
         .reshape(hh, ww)
 
 
+def _recon(pred, lvl, rres):
+    """The reconstruction of a TU: pred + residual where the TU codes a
+    nonzero level, the prediction where it codes none."""
+    nz = (lvl != 0).any(dim=-1).any(dim=-1)
+    return torch.where(nz[:, None, None], torch.clamp(pred + rres, 0, 255),
+                       pred)
+
+
 def select_intra_independent(want: torch.Tensor) -> torch.Tensor:
     """Twin of golden select_intra_independent (king-graph 4-class sweep):
     a subset of `want` (gh, gw) bool with no two selected CUs adjacent."""
@@ -215,6 +228,7 @@ class TorchInterEncoder:
             self.if_mask_c = torch.as_tensor(dip.avail_masks(
                 self.w, self.h, ps.ctu_size, 8, 1, gxs[None, :] * 8,
                 gys[:, None] * 8), device=self.device)
+        self._aranges = {}
         self.last_dev = None
 
     def _bits(self, v: torch.Tensor) -> torch.Tensor:
@@ -228,9 +242,12 @@ class TorchInterEncoder:
 
     def _hier_me(self, sy, ry, lam16: int):
         """Hierarchical shortlist full-pel ME vs one reference plane
-        (golden twin: hier_pel_fields). Returns (mvs (B, 2) qpel, prior,
-        mv32 (B2, 2) qpel, prior2, mv64 (B4, 2) qpel, prior4); the tree
-        levels are None when the program has no tree / no CU64 layer."""
+        (golden twin: hier_pel_fields). sy is the source plane: uint8, or
+        int16 where its values may leave [0, 255] (the B program's bi
+        target 2 * src - pred, in [-255, 510]); ry the int32 reference.
+        Returns (mvs (B, 2) qpel, prior, mv32 (B2, 2) qpel, prior2,
+        mv64 (B4, 2) qpel, prior4); the tree levels are None when the
+        program has no tree / no CU64 layer."""
         cu = self.cu
         gw, gh = self.gw, self.gh
         R = self.search
@@ -239,11 +256,15 @@ class TorchInterEncoder:
         K, G16, G32, G64 = 3, 8, 4, 2
 
         m = cu // 2
-        sd8 = _decim(sy).to(torch.uint8).contiguous()     # (gh*m, gw*m)
+        # the decimated source keeps the plane's own dtype (a 2x2 mean
+        # stays inside its plane's range), so a wide plane is never cast
+        # to uint8; the sweep's entry point follows the dtype
+        assert sy.dtype in (torch.uint8, torch.int16), sy.dtype
+        sd = _decim(sy.to(torch.int32)).to(sy.dtype).contiguous()
         rd = _decim(ry)
         pad_c = pad_edge(rd.to(torch.uint8), R, R).contiguous()
         # coarse sweep: the hand-written kernel on CUDA (plain on CPU)
-        sads = coarse_sweep_sads(sd8, pad_c, R, m)
+        sads = coarse_sweep_sads(sd, pad_c, R, m)
         n_off = side * side
         ks = torch.arange(n_off, dtype=torch.int32, device=dev)
 
@@ -281,7 +302,7 @@ class TorchInterEncoder:
         # reach (golden twin: the far block of hier_pel_fields)
         far_centers = []                       # device (cdx, cdy) pairs
         if self.far:
-            far_centers = self._far_centers(sd8, rd, prior, lam16, K)
+            far_centers = self._far_centers(sd, rd, prior, lam16, K)
 
         # offset list: exact +-4 fine sweep, then the shortlist and FAR
         # neighbourhoods (golden order: argmin first-min == the golden
@@ -355,17 +376,18 @@ class TorchInterEncoder:
                 mv64 = level_best(s64r, prior4)
         return mvs, prior, mv32, prior2, mv64, prior4
 
-    def _far_centers(self, sd8, rd, prior, lam16: int, K: int):
+    def _far_centers(self, sd, rd, prior, lam16: int, K: int):
         """The FAR level of _hier_me: a dense 4x-decimated sweep over
         +-far x +-min(far, 64) full-pel, votes of the offsets the 2x sweep
         does not cover, and a 2x-level +-2 refine of the GQ most voted by
-        global decimated SAD. Returns GQ device (cdx, cdy) full-pel
+        global decimated SAD. sd is the 2x-decimated source with its true
+        values (uint8 or int16). Returns GQ device (cdx, cdy) full-pel
         centres."""
         dev = self.device
         GQ = 4
         grid, vote_mask = far_grid(self.search, self.far)
         xq, yq = self.far // 4, min(self.far // 4, 16)
-        sd4 = _decim(sd8.to(torch.int32))
+        sd4 = _decim(sd.to(torch.int32))
         rd4 = _decim(rd)
         m4 = 4
         gh4x, gw4x = sd4.shape[0] // m4, sd4.shape[1] // m4
@@ -397,8 +419,8 @@ class TorchInterEncoder:
         # the bands start at py2 + 2qy + oy >= 0 and end inside the plane
         py2, px2 = 2 * yq + 2, 2 * xq + 2
         pad_c2 = pad_edge(rd.to(torch.uint8), py2, px2)
-        h2c, w2c = sd8.shape
-        sdi = sd8.to(torch.int16)
+        h2c, w2c = sd.shape
+        sdi = sd.to(torch.int16)
         ar_h = torch.arange(h2c, device=dev)
         ar_w = torch.arange(w2c + 4, device=dev)
         centers = []
@@ -425,7 +447,6 @@ class TorchInterEncoder:
         cu, cuc = self.cu, self.cu // 2
         gw, gh = self.gw, self.gh
         dev = self.device
-        sl = self.ps.scaling_list_enabled
         sy = src_y.to(torch.int32)
         su = src_u.to(torch.int32)
         sv = src_v.to(torch.int32)
@@ -434,107 +455,47 @@ class TorchInterEncoder:
         qp_c = int(T.CHROMA_QP_MAP[min(max(qp + self.ps.cb_qp_offset, 0),
                                        57)])
         lam16 = int(T.LAMBDA_ME_X16_TAB[qp])
-        mvs, prior, mv32, prior2, mv64, prior4 = self._hier_me(sy, ry, lam16)
+        mvs, prior, mv32, prior2, mv64, prior4 = self._hier_me(src_y, ry,
+                                                               lam16)
 
         # ---- sub-pel refinement (half then quarter) over one (n+8)^2
         # patch per block, all 16 quarter-pel phases interpolated ----
         B = gh * gw
         padL = self.reach + 8
         ref_padL = pad_edge(ry, padL, padL)
-        taps = self.taps
         bidx = torch.arange(B, device=dev, dtype=torch.int32)
         x0s = (bidx % gw) * cu
         y0s = torch.div(bidx, gw, rounding_mode="floor") * cu
         src_blk = _blocks(sy, cu)
         me_prec = int(self.cfg.motion_estimation_precision)
-        ar_b = torch.arange(B, device=dev)
 
         def make_v16(x0v, y0v, mv0, n):
-            """(16, B, n+1, n+1) quarter-pel interpolations of the patch
-            anchored one pel up-left of the full-pel mv0."""
-            ix0, iy0 = mv0[:, 0] >> 2, mv0[:, 1] >> 2
-            by = y0v + iy0 - 1 + padL - 3
-            bx = x0v + ix0 - 1 + padL - 3
-            patch = extract_patches(ref_padL, by, bx, n + 8)  # (B, n+8, n+8)
-            h4 = sum(taps[:, k, None, None, None]
-                     * patch[None, :, :, k:k + n + 1] for k in range(8))
-            v = sum(taps[:, k, None, None, None, None]
-                    * h4[None, :, :, k:k + n + 1, :] for k in range(8)) >> 6
-            v16 = torch.clamp((v + 32) >> 6, 0, 255)
-            return v16.reshape(16, -1, n + 1, n + 1), ix0, iy0
-
-        def mc_v16(v16, ix0, iy0, mv, n):
-            p = ((mv[:, 1] & 3) * 4 + (mv[:, 0] & 3)).long()
-            oy = (mv[:, 1] >> 2) - (iy0 - 1)
-            ox = (mv[:, 0] >> 2) - (ix0 - 1)
-            sel = v16[p, ar_b[:mv.shape[0]]]                # (B, n+1, n+1)
-            idx = (oy * 2 + ox)[:, None, None]
-            return torch.where(
-                idx == 0, sel[:, 0:n, 0:n],
-                torch.where(idx == 1, sel[:, 0:n, 1:n + 1],
-                            torch.where(idx == 2, sel[:, 1:n + 1, 0:n],
-                                        sel[:, 1:n + 1, 1:n + 1])))
-
-        def refine_with(v16, ix0, iy0, src_b, nb, mv_cur, step, pr):
-            bc = torch.full((mv_cur.shape[0],), 1 << 30, dtype=torch.int32,
-                            device=dev)
-            bmv = mv_cur
-            for off in self.steps[step]:
-                cand = mv_cur + off
-                p = mc_v16(v16, ix0, iy0, cand, nb)
-                sad = torch.abs(src_b - p).sum(dim=(-1, -2),
-                                               dtype=torch.int32)
-                rt = self._mv_rate(cand[:, 0], cand[:, 1], pr)
-                cost = sad + ((lam16 * rt) >> 4)
-                better = cost < bc
-                bc = torch.where(better, cost, bc)
-                bmv = torch.where(better[:, None], cand, bmv)
-            return bmv
+            v16, _, ix0, iy0 = self._make_v(ref_padL, padL, x0v, y0v, mv0, n)
+            return v16, ix0, iy0
 
         def subpel(x0v, y0v, src_b, mv0, n, pr):
             """Half- then quarter-pel refinement and the prediction at the
             refined MV."""
             v16, ix0, iy0 = make_v16(x0v, y0v, mv0, n)
             mv = mv0
-            if me_prec >= 1:
-                mv = refine_with(v16, ix0, iy0, src_b, n, mv, 2, pr)
-            if me_prec >= 2:
-                mv = refine_with(v16, ix0, iy0, src_b, n, mv, 1, pr)
-            return mv, mc_v16(v16, ix0, iy0, mv, n)
+            for step in (2, 1)[:me_prec]:
+                mv = self._refine(v16, ix0, iy0, src_b, n, mv, step, pr,
+                                  lam16)
+            return mv, self._sel_phase(v16, ix0, iy0, mv, n)
 
         def code(resid, n, q):
-            coef = forward_transform(resid, False)
-            lvl = quantize(coef, n, q, False, sl)
-            if self.ps.sign_hiding:
-                lvl = sign_bit_hiding(lvl, coef, n, q, False, 0, sl)
-            rres = inverse_transform(dequantize(lvl, n, q, False, sl), False)
-            return self._zero_force(resid, lvl, rres, zf_mult)
-
-        def recon(pred, lvl, rres):
-            nz = (lvl != 0).any(dim=-1).any(dim=-1)
-            return torch.where(nz[:, None, None],
-                               torch.clamp(pred + rres, 0, 255), pred)
+            return self._code(resid, n, q, zf_mult)
 
         # ---- luma MC + residual ----
         mvs, pred = subpel(x0s, y0s, src_blk, mvs, cu, prior)
         resid = src_blk - pred
         lvl, rres = code(resid, cu, qp)
-        rec = recon(pred, lvl, rres)
+        rec = _recon(pred, lvl, rres)
 
         lam = self.rd_lambda_p[qp]                        # float32 scalar
 
         def model_cost(src_b, rec_b, lvl_b, bits_b):
-            """ssd + lam * (3 nnz + sum|l| + bits), float32. The SSD is
-            summed exactly as int32, then rounded once: equal to JAX's
-            float32 sum wherever that is exact (below 2^24, always for a
-            16x16 block), rounded once where JAX rounds each partial sum
-            above 2^24, and the same on every device."""
-            dd = src_b - rec_b
-            ssd = (dd * dd).sum(dim=(-1, -2), dtype=torch.int32) \
-                .to(torch.float32)
-            nnzf = (lvl_b != 0).sum(dim=(-1, -2)).to(torch.float32)
-            lsum = torch.abs(lvl_b).sum(dim=(-1, -2)).to(torch.float32)
-            return ssd + lam * (3.0 * nnzf + lsum + bits_b)
+            return self._model_cost(src_b, rec_b, lvl_b, bits_b, lam)
 
         def cu_cost(src_b, rec_b, lvl_b, mv_b, pr):
             """The CU cost with a 6-bin overhead and the MV's rate against
@@ -584,10 +545,10 @@ class TorchInterEncoder:
             for c in range(2):
                 mvc = cand[c]
                 vC, ixC, iyC = make_v16(x0s, y0s, mvc, cu)
-                predc = mc_v16(vC, ixC, iyC, mvc, cu)
+                predc = self._sel_phase(vC, ixC, iyC, mvc, cu)
                 residc = src_blk - predc
                 lvlc_, rrc_ = code(residc, cu, qp)
-                recc_ = recon(predc, lvlc_, rrc_)
+                recc_ = _recon(predc, lvlc_, rrc_)
                 cost = model_cost(src_blk, recc_, lvlc_,
                                   MERGE_FAST_BITS_BASE + c)
                 same = (mvc == mvs).all(dim=-1)
@@ -624,7 +585,7 @@ class TorchInterEncoder:
             resc = src_cb - predc
             if n <= 16:
                 lvlc, rrc = code(resc, n, qp_c)
-                return lvlc, recon(predc, lvlc, rrc)
+                return lvlc, _recon(predc, lvlc, rrc)
             # CU64: four 16x16 TUs over the 32x32 chroma block
             lvlc, rrc = code(_quarters(resc, 16), 16, qp_c)
             return (_full(lvlc, 16),
@@ -665,7 +626,7 @@ class TorchInterEncoder:
             mv32, pred32 = subpel(x0s2, y0s2, src32, mv32, 32, prior2)
             lvl32, rres32 = code(src32 - pred32, 32, qp)
             nz32 = (lvl32 != 0).any(dim=-1).any(dim=-1)
-            rec32 = recon(pred32, lvl32, rres32)
+            rec32 = _recon(pred32, lvl32, rres32)
             c32 = cu_cost(src32, rec32, lvl32, mv32, prior2) \
                 .reshape(gh2, gw2)
             c16 = cu_cost(src_blk, rec, lvl, mvs, prior2).reshape(gh, gw)
@@ -682,15 +643,7 @@ class TorchInterEncoder:
             lvl_v32, rec_v32 = chroma(sv, ref_padV, x0s2, y0s2, 16, mv32,
                                       gh2 * 16)
 
-            def combine(plane16, blocks32, m):
-                """Overwrite the top gh2*m rows of plane16 with blocks32
-                where the CTB32 was chosen as one CU."""
-                p32 = _unblock(blocks32.to(plane16.dtype), m, gh2 * m,
-                               gw2 * m)
-                top = torch.where(_rep(choose, m), p32, plane16[:gh2 * m])
-                return torch.cat([top, plane16[gh2 * m:]], dim=0)
-
-            planes = [combine(p, b, m) for p, b, m in zip(
+            planes = [_combine32(p, b, m, choose) for p, b, m in zip(
                 planes, (rec32, rec_u32, rec_v32, lvl32, lvl_u32, lvl_v32),
                 (32, 16, 16, 32, 16, 16))]
             extra += [choose.to(torch.uint8),
@@ -784,6 +737,343 @@ class TorchInterEncoder:
                 sy, su, sv, recon_y, recon_u, recon_v, qp)
             extra.append(sao_p)
         return self._wire(recon_y, recon_u, recon_v, sy, extra, ly, lu, lv)
+
+    def _impl_b(self, src_y, src_u, src_v, r0y, r0u, r0v, r1y, r1u, r1v,
+                zf_mult, qp: int):
+        """The bi-capable frame (a B frame of IBP, or a generalized-B "P"
+        frame) of the CU32/CU16 tree, with a per-CU choice of uni-L0,
+        uni-L1 or bi by SSD + lambda * rate: the twin of the JAX
+        _impl_b and of golden encode_b_frame_tree. The uni-L1 candidate
+        searches the source, the bi list-1 field the bi target
+        2 * src - pred0 (a wide plane, in [-255, 510]); list 0 is then
+        re-refined against 2 * src - pred1. Bi predicts by the normative
+        14-bit average (p14a + p14b + 64) >> 7."""
+        assert self.tree
+        cu, cuc = self.cu, self.cu // 2
+        gw, gh = self.gw, self.gh
+        gh2, gw2 = self.gh2, self.gw2
+        dev = self.device
+        sy = src_y.to(torch.int32)
+        su = src_u.to(torch.int32)
+        sv = src_v.to(torch.int32)
+        ry0 = r0y.to(torch.int32)
+        ry1 = r1y.to(torch.int32)
+        qp_c = int(T.CHROMA_QP_MAP[min(max(qp + self.ps.cb_qp_offset, 0),
+                                       57)])
+        lam16 = int(T.LAMBDA_ME_X16_TAB[qp])
+        lam = self.rd_lambda_p[qp]                        # float32 scalar
+        me_prec = int(self.cfg.motion_estimation_precision)
+        B, B2 = gh * gw, gh2 * gw2
+        padL = self.reach + 8
+        padC = self.reach // 2 + 4
+
+        mvs0, pr0, mv32_0, pr2_0, _, _ = self._hier_me(src_y, ry0, lam16)
+        # the uni-L1 candidate's motion field, matched to the source
+        mvs1s, pr1s, mv32_1s, pr2_1s, _, _ = self._hier_me(src_y, ry1, lam16)
+
+        bidx = torch.arange(B, device=dev, dtype=torch.int32)
+        x0s = (bidx % gw) * cu
+        y0s = torch.div(bidx, gw, rounding_mode="floor") * cu
+        b2 = torch.arange(B2, device=dev, dtype=torch.int32)
+        x0s2 = (b2 % gw2) * 32
+        y0s2 = torch.div(b2, gw2, rounding_mode="floor") * 32
+        src_blk = _blocks(sy, cu)
+        src32 = _blocks(sy[:gh2 * 32], 32)
+        ref_padL0 = pad_edge(ry0, padL, padL)
+        ref_padL1 = pad_edge(ry1, padL, padL)
+
+        def refine_and_pred(ref_padL, mvq, pr, src_b, x0v, y0v, n):
+            """Sub-pel refine mvq; (mvq, its 14-bit prediction, its
+            rounded uni prediction)."""
+            v16, v14, ix0, iy0 = self._make_v(ref_padL, padL, x0v, y0v, mvq,
+                                              n)
+            for step in (2, 1)[:me_prec]:
+                mvq = self._refine(v16, ix0, iy0, src_b, n, mvq, step, pr,
+                                   lam16)
+            return (mvq, self._sel_phase(v14, ix0, iy0, mvq, n),
+                    self._sel_phase(v16, ix0, iy0, mvq, n))
+
+        def code_pred(pred, src_b, n, q):
+            """TU coding of one prediction: (levels, recon, nonzero)."""
+            lvl, rres = self._code(src_b - pred, n, q, zf_mult)
+            return lvl, _recon(pred, lvl, rres), (lvl != 0).any(-1).any(-1)
+
+        def code_bi(p14a, p14b, src_b, n):
+            pred = torch.clamp((p14a + p14b + 64) >> 7, 0, 255)
+            return code_pred(pred, src_b, n, qp)
+
+        def rate_of(mv, pr):
+            return self._mv_rate(mv[:, 0], mv[:, 1], pr)
+
+        def cu_cost(src_b, rec_b, lvl_b, rt):
+            return self._model_cost(src_b, rec_b, lvl_b,
+                                    6.0 + rt.to(torch.float32), lam)
+
+        def choose3(cbi, cu0, cu1):
+            """The direction bitmask per block: bi wins ties against both
+            unis, uni-L0 against uni-L1 (golden choose() twin)."""
+            return torch.where((cbi <= cu0) & (cbi <= cu1), 3,
+                               torch.where(cu0 <= cu1, 1, 2)) \
+                .to(torch.int32)
+
+        def sel3(dirv, a_bi, a_u0, a_u1):
+            d = dirv.reshape(dirv.shape + (1,) * (a_bi.ndim - 1))
+            return torch.where(d == 3, a_bi, torch.where(d == 1, a_u0, a_u1))
+
+        def refine_bi0(mv0c, pr_, pu8b, p14b, mv1c, pr1_, src_b, x0v, y0v,
+                       n, lvl_b, rec_b, nz_b, cb):
+            """Alternating bi refinement: re-refine list 0 against the
+            complement target 2 * src - pred1 inside the volume at mv0c,
+            keep the refined bi coding where it wins RD (golden twin:
+            refine_l0_against)."""
+            tgt0 = 2 * src_b - pu8b
+            v16r, v14r, ixr, iyr = self._make_v(ref_padL0, padL, x0v, y0v,
+                                                mv0c, n)
+            bounds = (torch.stack([4 * ixr - 4, 4 * iyr - 4], dim=1),
+                      torch.stack([4 * ixr + 3, 4 * iyr + 3], dim=1))
+            mv0r = mv0c
+            for step in (2, 1)[:me_prec]:
+                mv0r = self._refine(v16r, ixr, iyr, tgt0, n, mv0r, step, pr_,
+                                    lam16, bounds)
+            lvl_r, rec_r, nz_r = code_bi(
+                self._sel_phase(v14r, ixr, iyr, mv0r, n), p14b, src_b, n)
+            cbr = cu_cost(src_b, rec_r, lvl_r,
+                          rate_of(mv0r, pr_) + rate_of(mv1c, pr1_))
+            use = cbr < cb
+            return (torch.where(use[:, None], mv0r, mv0c),
+                    torch.where(use[:, None, None], lvl_r, lvl_b),
+                    torch.where(use[:, None, None], rec_r, rec_b),
+                    torch.where(use, nz_r, nz_b), torch.minimum(cb, cbr))
+
+        def level(l0, l1, tgt_b, l1s, src_b, x0v, y0v, n):
+            """One level of the tree (CU16 or CU32) from the refined list-0
+            candidate l0 = (mv, prior, 14-bit pred, uni pred), the list-1
+            field l1 = (mv, prior) matched to the bi target tgt_b and the
+            uni-L1 field l1s matched to the source: the three candidates
+            coded, the direction chosen, the chosen coding and the
+            effective per-list motion (zero where a list is unused; the bi
+            list-0 MV may differ from the uni-L0 one after refine_bi0)."""
+            mv0, pr_0, p14_0, pu8_0 = l0
+            mv1, p14_1, pu8_1 = refine_and_pred(ref_padL1, *l1, tgt_b, x0v,
+                                                y0v, n)
+            mv1s, _, pu8_1s = refine_and_pred(ref_padL1, *l1s, src_b, x0v,
+                                              y0v, n)
+            lvl_bi, rec_bi, nz_bi = code_bi(p14_0, p14_1, src_b, n)
+            cbi = cu_cost(src_b, rec_bi, lvl_bi,
+                          rate_of(mv0, pr_0) + rate_of(mv1, l1[1]))
+            mv0bi, lvl_bi, rec_bi, nz_bi, cbi = refine_bi0(
+                mv0, pr_0, pu8_1, p14_1, mv1, l1[1], src_b, x0v, y0v, n,
+                lvl_bi, rec_bi, nz_bi, cbi)
+            lvl_u0, rec_u0, nz_u0 = code_pred(pu8_0, src_b, n, qp)
+            lvl_u1, rec_u1, nz_u1 = code_pred(pu8_1s, src_b, n, qp)
+            cu0 = cu_cost(src_b, rec_u0, lvl_u0, rate_of(mv0, pr_0))
+            cu1 = cu_cost(src_b, rec_u1, lvl_u1, rate_of(mv1s, l1s[1]))
+            dirv = choose3(cbi, cu0, cu1)
+            mv1_sel = torch.where((dirv == 3)[:, None], mv1, mv1s)
+            return dict(
+                dir=dirv, cost=torch.minimum(cbi, torch.minimum(cu0, cu1)),
+                lvl=sel3(dirv, lvl_bi, lvl_u0, lvl_u1),
+                rec=sel3(dirv, rec_bi, rec_u0, rec_u1),
+                nz=sel3(dirv, nz_bi, nz_u0, nz_u1),
+                mv0=mv0, mv0bi=mv0bi, mv1=mv1, mv1s=mv1s,
+                mv0_eff=torch.where((dirv == 3)[:, None], mv0bi,
+                                    torch.where((dirv == 1)[:, None], mv0,
+                                                0)),
+                mv1_eff=torch.where((dirv & 2).bool()[:, None], mv1_sel, 0))
+
+        # ---- CU16 level: list 0 first, then bi list 1 by bi-target
+        # matching (2 * src - pred0) over the whole plane ----
+        mvs0, p14, pu8 = refine_and_pred(ref_padL0, mvs0, pr0, src_blk, x0s,
+                                         y0s, cu)
+        tgt_plane = 2 * sy - _unblock(pu8, cu, self.h, self.w)
+        mvs1, pr1, mv32_1, pr2_1, _, _ = self._hier_me(
+            tgt_plane.to(torch.int16), ry1, lam16)
+        L16 = level((mvs0, pr0, p14, pu8), (mvs1, pr1),
+                    _blocks(tgt_plane, cu), (mvs1s, pr1s), src_blk, x0s, y0s,
+                    cu)
+
+        # ---- chroma: the chosen direction's prediction, coded once (the
+        # uni / bi choice is luma-driven, exactly as golden) ----
+        r0up = pad_edge(r0u.to(torch.int32), padC, padC)
+        r0vp = pad_edge(r0v.to(torch.int32), padC, padC)
+        r1up = pad_edge(r1u.to(torch.int32), padC, padC)
+        r1vp = pad_edge(r1v.to(torch.int32), padC, padC)
+
+        def chroma_sel(src_c, rows, rpa, rpb, x0v, y0v, n, L):
+            ca14 = mc_chroma_batch_14(rpa, padC, x0v, y0v, n, L["mv0bi"])
+            cb14 = mc_chroma_batch_14(rpb, padC, x0v, y0v, n, L["mv1"])
+            pred = sel3(L["dir"], torch.clamp((ca14 + cb14 + 64) >> 7, 0, 255),
+                        mc_chroma_batch(rpa, padC, x0v, y0v, n, L["mv0"]),
+                        mc_chroma_batch(rpb, padC, x0v, y0v, n, L["mv1s"]))
+            return code_pred(pred, _blocks(src_c[:rows], n), n, qp_c)[:2]
+
+        hc, wc = self.h // 2, self.w // 2
+        lvl_u, rec_u = chroma_sel(su, hc, r0up, r1up, x0s // 2, y0s // 2,
+                                  cuc, L16)
+        lvl_v, rec_v = chroma_sel(sv, hc, r0vp, r1vp, x0s // 2, y0s // 2,
+                                  cuc, L16)
+        planes = [_unblock(L16["rec"], cu, self.h, self.w),
+                  _unblock(rec_u, cuc, hc, wc), _unblock(rec_v, cuc, hc, wc),
+                  _unblock(L16["lvl"].to(torch.int16), cu, self.h, self.w),
+                  _unblock(lvl_u.to(torch.int16), cuc, hc, wc),
+                  _unblock(lvl_v.to(torch.int16), cuc, hc, wc)]
+
+        # ---- CU32 level (the same three-way selection) ----
+        mv32_0, p14, pu8 = refine_and_pred(ref_padL0, mv32_0, pr2_0, src32,
+                                           x0s2, y0s2, 32)
+        L32 = level((mv32_0, pr2_0, p14, pu8), (mv32_1, pr2_1),
+                    2 * src32 - pu8, (mv32_1s, pr2_1s), src32, x0s2, y0s2,
+                    32)
+        c16p = _sum2x2(L16["cost"].reshape(gh, gw)[:gh2 * 2])
+        choose = L32["cost"].reshape(gh2, gw2) <= c16p
+        lvl_u32, rec_u32 = chroma_sel(su, gh2 * 16, r0up, r1up, x0s2 // 2,
+                                      y0s2 // 2, 16, L32)
+        lvl_v32, rec_v32 = chroma_sel(sv, gh2 * 16, r0vp, r1vp, x0s2 // 2,
+                                      y0s2 // 2, 16, L32)
+        planes = [_combine32(p, b, m, choose) for p, b, m in zip(
+            planes, (L32["rec"], rec_u32, rec_v32, L32["lvl"], lvl_u32,
+                     lvl_v32), (32, 16, 16, 32, 16, 16))]
+        recon_y, recon_u, recon_v, ly, lu, lv = planes
+
+        if self.ps.deblocking_enabled:
+            recon_y = self._deblock_bi(recon_y, L16, L32, choose, qp)
+        extra = [L16["mv0_eff"].reshape(gh, gw, 2).to(torch.int16),
+                 L16["mv1_eff"].reshape(gh, gw, 2).to(torch.int16),
+                 L16["dir"].reshape(gh, gw).to(torch.uint8),
+                 choose.to(torch.uint8),
+                 L32["mv0_eff"].reshape(gh2, gw2, 2).to(torch.int16),
+                 L32["mv1_eff"].reshape(gh2, gw2, 2).to(torch.int16),
+                 L32["dir"].reshape(gh2, gw2).to(torch.uint8)]
+        if self.ps.sao_enabled:
+            recon_y, recon_u, recon_v, sao_p = self._sao(
+                sy, su, sv, recon_y, recon_u, recon_v, qp)
+            extra.append(sao_p)
+        return self._wire(recon_y, recon_u, recon_v, sy, extra, ly, lu, lv)
+
+    def _deblock_bi(self, plane_y, L16, L32, choose, qp: int):
+        """Luma deblocking of a bi-capable frame (spec 8.7.2.4): on a TU
+        edge BS 1 where either side codes a nonzero TU, the directions
+        differ, or a list both sides use has MVs 4 quarter-pels or more
+        apart (golden bs_between)."""
+        gh, gw, gh2, gw2 = self.gh, self.gw, self.gh2, self.gw2
+        pad_rows = self.h // 8 - gh2 * 4
+        chf = _pad_rows(_rep(choose, 4), pad_rows)
+
+        def map8(key, comps=()):
+            a = _rep(L16[key].reshape(gh, gw, *comps), 2)
+            b = _pad_rows(_rep(L32[key].reshape(gh2, gw2, *comps), 4),
+                          pad_rows)
+            return torch.where(chf.reshape(chf.shape + (1,) * len(comps)),
+                               b, a)
+        nz8, dir8 = map8("nz"), map8("dir")
+        ts8 = torch.where(chf, 32, 16)
+        ux = torch.arange(nz8.shape[1], device=self.device)[None, :]
+        uy = torch.arange(nz8.shape[0], device=self.device)[:, None]
+        vv = (ux > 0) & (((ux * 8) % ts8) == 0)
+        vh = (uy > 0) & (((uy * 8) % ts8) == 0)
+        edge_v = nz8 | _sh1(nz8) | (dir8 != _sh1(dir8))
+        edge_h = nz8 | _shift_down(nz8) | (dir8 != _shift_down(dir8))
+        for key, bit in (("mv0_eff", 1), ("mv1_eff", 2)):
+            mv8 = map8(key, (2,))
+            use = (dir8 & bit).bool()
+            edge_v = edge_v | ((torch.abs(mv8 - _sh1(mv8)) >= 4).any(dim=-1)
+                               & use)
+            edge_h = edge_h | ((torch.abs(mv8 - _shift_down(mv8)) >= 4)
+                               .any(dim=-1) & use)
+        return deblock_luma_bs(plane_y, (vv & edge_v).to(torch.int32),
+                               (vh & edge_h).to(torch.int32), qp)
+
+    # ---- the programs' shared stages --------------------------------------
+
+    def _arange(self, n: int) -> torch.Tensor:
+        """torch.arange(n) on the device, made once per length."""
+        a = self._aranges.get(n)
+        if a is None:
+            a = self._aranges[n] = torch.arange(n, device=self.device)
+        return a
+
+    def _make_v(self, ref_padL, padL: int, x0v, y0v, mv0, n: int):
+        """(v16, v14, ix0, iy0): the 16 quarter-pel interpolations
+        (16, B, n+1, n+1) of each block's (n+8)^2 patch of ref_padL (the
+        reference edge-padded by padL), anchored one pel up-left of the
+        full-pel part of mv0, rounded to 8 bits (v16) and as the filter's
+        14-bit intermediate (v14, the bi average's input)."""
+        taps = self.taps
+        ix0, iy0 = mv0[:, 0] >> 2, mv0[:, 1] >> 2
+        by = y0v + iy0 - 1 + padL - 3
+        bx = x0v + ix0 - 1 + padL - 3
+        patch = extract_patches(ref_padL, by, bx, n + 8)    # (B, n+8, n+8)
+        h4 = sum(taps[:, k, None, None, None]
+                 * patch[None, :, :, k:k + n + 1] for k in range(8))
+        v = sum(taps[:, k, None, None, None, None]
+                * h4[None, :, :, k:k + n + 1, :] for k in range(8)) >> 6
+        v16 = torch.clamp((v + 32) >> 6, 0, 255)
+        return (v16.reshape(16, -1, n + 1, n + 1),
+                v.reshape(16, -1, n + 1, n + 1), ix0, iy0)
+
+    def _sel_phase(self, v, ix0, iy0, mv, n: int):
+        """The (B, n, n) prediction at the quarter-pel mv out of a _make_v
+        volume v (its v16 or v14): the phase plane, then one of the four
+        integer crops."""
+        p = ((mv[:, 1] & 3) * 4 + (mv[:, 0] & 3)).long()
+        oy = (mv[:, 1] >> 2) - (iy0 - 1)
+        ox = (mv[:, 0] >> 2) - (ix0 - 1)
+        sel = v[p, self._arange(mv.shape[0])]               # (B, n+1, n+1)
+        idx = (oy * 2 + ox)[:, None, None]
+        return torch.where(
+            idx == 0, sel[:, 0:n, 0:n],
+            torch.where(idx == 1, sel[:, 0:n, 1:n + 1],
+                        torch.where(idx == 2, sel[:, 1:n + 1, 0:n],
+                                    sel[:, 1:n + 1, 1:n + 1])))
+
+    def _refine(self, v16, ix0, iy0, src_b, n: int, mv_cur, step: int, pr,
+                lam16: int, bounds=None):
+        """One +-step sub-pel refinement round: the candidate of least
+        SAD + MV rate, the first minimum in scan order. bounds (lo, hi)
+        clamp each candidate into the interpolation volume, which covers
+        two integer positions per axis: a volume anchored at a
+        non-zero-phase MV could otherwise be left and _sel_phase would read
+        the wrong pixels."""
+        bc = torch.full((mv_cur.shape[0],), 1 << 30, dtype=torch.int32,
+                        device=self.device)
+        bmv = mv_cur
+        for off in self.steps[step]:
+            cand = mv_cur + off
+            if bounds is not None:
+                cand = torch.clamp(cand, bounds[0], bounds[1])
+            p = self._sel_phase(v16, ix0, iy0, cand, n)
+            sad = torch.abs(src_b - p).sum(dim=(-1, -2), dtype=torch.int32)
+            rt = self._mv_rate(cand[:, 0], cand[:, 1], pr)
+            cost = sad + ((lam16 * rt) >> 4)
+            better = cost < bc
+            bc = torch.where(better, cost, bc)
+            bmv = torch.where(better[:, None], cand, bmv)
+        return bmv
+
+    def _code(self, resid, n: int, q: int, zf_mult):
+        """TU coding of a residual: T, Q (+ SBH), IQ, IT and the
+        zero-forcing. Returns (levels, reconstructed residual)."""
+        sl = self.ps.scaling_list_enabled
+        coef = forward_transform(resid, False)
+        lvl = quantize(coef, n, q, False, sl)
+        if self.ps.sign_hiding:
+            lvl = sign_bit_hiding(lvl, coef, n, q, False, 0, sl)
+        rres = inverse_transform(dequantize(lvl, n, q, False, sl), False)
+        return self._zero_force(resid, lvl, rres, zf_mult)
+
+    @staticmethod
+    def _model_cost(src_b, rec_b, lvl_b, bits_b, lam):
+        """ssd + lam * (3 nnz + sum|l| + bits), float32. The SSD is summed
+        exactly as int32, then rounded once: equal to JAX's float32 sum
+        wherever that is exact (below 2^24, always for a 16x16 block),
+        rounded once where JAX rounds each partial sum above 2^24, and the
+        same on every device."""
+        dd = src_b - rec_b
+        ssd = (dd * dd).sum(dim=(-1, -2), dtype=torch.int32) \
+            .to(torch.float32)
+        nnzf = (lvl_b != 0).sum(dim=(-1, -2)).to(torch.float32)
+        lsum = torch.abs(lvl_b).sum(dim=(-1, -2)).to(torch.float32)
+        return ssd + lam * (3.0 * nnzf + lsum + bits_b)
 
     @staticmethod
     def _spread(g: torch.Tensor, r: int) -> torch.Tensor:
@@ -972,21 +1262,35 @@ class TorchInterEncoder:
         without any device->host copy. self.last_dev holds the
         (device-resident) post-deblock, post-SAO recon for chaining the
         next frame."""
+        return self._run(self._impl, (*src, *ref), avg_dist, qp)
+
+    def dispatch_b(self, src, ref0, ref1, avg_dist: float = 1000.0,
+                   qp=None):
+        """Launch the bi-capable program (_impl_b) against the list-0
+        reference ref0 and the list-1 reference ref1."""
+        return self._run(self._impl_b, (*src, *ref0, *ref1), avg_dist, qp)
+
+    def _run(self, impl, planes, avg_dist: float, qp):
         qp = self.cfg.qp if qp is None else int(qp)
         zf = torch.tensor(zf_multiplier(avg_dist, qp), dtype=torch.float32,
                           device=self.device)
-        planes = [as_device_plane(a, self.device) for a in (*src, *ref)]
+        planes = [as_device_plane(a, self.device) for a in planes]
         with PROFILER.scope("disp_run"):
-            out = self._impl(*planes, zf, qp)
+            out = impl(*planes, zf, qp)
         self.last_dev = (out[0], out[1], out[2])
         return out
 
-    def fetch(self, out):
+    def fetch(self, out, is_b: bool = False, bi: bool = False,
+              ref_dists=(1, 2)):
         """Download one dispatched frame's wire buffer and build the
         FrameDesc (host half of encode_frame); recon stays on the device.
-        The meta is read in the JAX order: mvs, the tree's choose / mv32
-        and choose64 / mv64, the intra-in-P mask and modes, SAO, the row
-        SSDs, then the CG wire."""
+        The meta is read in the JAX order: mvs (and with bi, the list-1
+        mvs and the directions), the tree's choose / mv32 (with bi, the
+        list-1 mv32 and the CU32 directions) and choose64 / mv64, the
+        intra-in-P mask and modes, SAO, the row SSDs, then the CG wire.
+        bi: the output came from _impl_b, which has no CU64 layer and no
+        intra-in-P; is_b: a B slice of uni-L0 CUs; ref_dists feed the
+        AMVP scaling of the tree's syntax selection."""
         recon_y, recon_u, recon_v, ly, lu, lv, meta = out
         meta_np = meta.cpu().numpy()
         gh, gw = self.gh, self.gw
@@ -1001,16 +1305,22 @@ class TorchInterEncoder:
                 a = a.copy().view(dt)
             return a.reshape(shape) if shape is not None else a
         mvs = take(gh * gw * 4, np.int16, (gh, gw, 2))
+        if bi:
+            mvs1 = take(gh * gw * 4, np.int16, (gh, gw, 2))
+            dir16 = take(gh * gw, None, (gh, gw))
         if self.tree:
             choose = take(gh2 * gw2, None, (gh2, gw2))
             mv32 = take(gh2 * gw2 * 4, np.int16, (gh2, gw2, 2))
+            if bi:
+                mv32_1 = take(gh2 * gw2 * 4, np.int16, (gh2, gw2, 2))
+                dir32 = take(gh2 * gw2, None, (gh2, gw2))
         choose64 = mv64 = None
-        if self.tree64:
+        if self.tree64 and not bi:
             gh4, gw4 = self.gh4, self.gw4
             choose64 = take(gh4 * gw4, None, (gh4, gw4))
             mv64 = take(gh4 * gw4 * 4, np.int16, (gh4, gw4, 2))
         intra16 = imode16 = None
-        if self.cfg.intra_in_p:
+        if self.cfg.intra_in_p and not bi:
             gih, giw = self.h // 16, self.w // 16
             intra16 = take(gih * giw, None, (gih, giw)).astype(bool)
             imode16 = take(gih * giw, None, (gih, giw))
@@ -1036,6 +1346,12 @@ class TorchInterEncoder:
         desc.cu_depth[:] = self.ps.log2_ctu - (cu.bit_length() - 1)
         r8 = cu // 8
         desc.mv[:] = np.repeat(np.repeat(mvs.astype(np.int32), r8, 0), r8, 1)
+        if bi:
+            desc.mv_l1 = np.repeat(np.repeat(mvs1.astype(np.int32), r8, 0),
+                                   r8, 1)
+            desc.mvp_flag_l1 = np.zeros_like(desc.mvp_flag)
+            desc.inter_dir = np.repeat(np.repeat(dir16.astype(np.uint8), r8,
+                                                 0), r8, 1)
         desc.coef_y = np.ascontiguousarray(py, np.int16)
         desc.coef_u = np.ascontiguousarray(pu, np.int16)
         desc.coef_v = np.ascontiguousarray(pv, np.int16)
@@ -1067,14 +1383,45 @@ class TorchInterEncoder:
                 desc.cu_depth[c64] = 0
                 desc.tr_depth[c64] = 1        # forced TU32 split
                 desc.mv[c64] = m64[c64]
-            select_inter_syntax_tree(self.ps, desc)
+            if bi:
+                m32b = np.repeat(np.repeat(mv32_1.astype(np.int32), 4, 0), 4,
+                                 1)
+                desc.mv_l1[:ch.shape[0], :ch.shape[1]][ch] = m32b[ch]
+                d32r = np.repeat(np.repeat(dir32.astype(np.uint8), 4, 0), 4,
+                                 1)
+                desc.inter_dir[:ch.shape[0], :ch.shape[1]][ch] = d32r[ch]
+            with PROFILER.scope("fetch_syntax"):
+                select_inter_syntax_tree(self.ps, desc, is_b=is_b or bi,
+                                         dists=ref_dists)
         else:
-            select_inter_syntax(self.ps, desc, cu)
+            with PROFILER.scope("fetch_syntax"):
+                select_inter_syntax(self.ps, desc, cu, is_b=is_b)
         return (desc, DevicePlane(recon_y), DevicePlane(recon_u),
                 DevicePlane(recon_v))
 
-    def encode_frame(self, src, ref, avg_dist: float = 1000.0, qp=None):
-        return self.fetch(self.dispatch(src, ref, avg_dist, qp=qp))
+    def encode_frame(self, src, ref, avg_dist: float = 1000.0, qp=None, *,
+                     is_b: bool = False):
+        """One P frame (or, with is_b, a B frame of uni-L0 CUs)."""
+        return self.fetch(self.dispatch(src, ref, avg_dist, qp=qp),
+                          is_b=is_b)
+
+    def encode_frame_b(self, src, ref0, ref1, avg_dist: float = 1000.0,
+                       qp=None, ref_dists=(1, -1)):
+        """One bi-capable frame; ref_dists are the POC distances of the
+        two lists' references (a B frame between its anchors by
+        default)."""
+        return self.fetch(self.dispatch_b(src, ref0, ref1, avg_dist, qp=qp),
+                          bi=True, ref_dists=ref_dists)
+
+
+def _combine32(plane16: torch.Tensor, blocks32: torch.Tensor, m: int,
+               choose: torch.Tensor) -> torch.Tensor:
+    """Overwrite the top gh2*m rows of plane16 with the m x m blocks32 of
+    the CTB32s chosen (gh2, gw2) as one CU."""
+    gh2, gw2 = choose.shape
+    p32 = _unblock(blocks32.to(plane16.dtype), m, gh2 * m, gw2 * m)
+    top = torch.where(_rep(choose, m), p32, plane16[:gh2 * m])
+    return torch.cat([top, plane16[gh2 * m:]], dim=0)
 
 
 def _quarters(blocks: torch.Tensor, m: int) -> torch.Tensor:

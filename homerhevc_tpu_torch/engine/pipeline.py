@@ -12,7 +12,15 @@ EncoderPipeline, restricted to the configurations the port covers:
     CU32 / CU64 layers), in every performance mode, with the FAR motion
     search level (me_range > 32) and intra-in-P: the depth-2 P chain,
     whose motion search reads the device-resident recon of the previous
-    frame; periodic and scene-change IDRs.
+    frame; periodic and scene-change IDRs. With gpb or num_ref_frames 2
+    at CTU 32, every P frame after the second bi-predicts from t-1 and
+    t-2 (generalized-B slices, t-2 in list 1 by l1_swap);
+  - IBP (gop_size 2, num_b 1) at the same CU sizes: anchors at even
+    display positions, each B between them coded after its later anchor
+    (decode order I0 P2 B1 A4 B3 ...). At CTU 32 the B frames bi-predict
+    from both anchors and the anchors from the third on from the two
+    previous anchors; elsewhere B frames predict from the earlier anchor
+    alone. Search range 24.
 
 SAO: the tree and P programs decide and apply SAO on the device and ship
 its parameters on the wire. The CU16 intra program has none, and for its
@@ -40,21 +48,46 @@ from homerhevc_tpu_torch.config import EncoderConfig, RDMode
 from homerhevc_tpu_torch.device import resolve_device
 from homerhevc_tpu_torch.engine.rate_control import RateControl
 from homerhevc_tpu_torch.hevc.bitstream import (
-    NAL_IDR_W_RADL, NAL_TRAIL_R, BitWriter, ebsp_row_escapes, make_nal,
+    NAL_IDR_W_RADL, NAL_TRAIL_N, NAL_TRAIL_R, BitWriter, ebsp_row_escapes,
+    make_nal,
 )
 from homerhevc_tpu_torch.hevc.cabac import CabacEncoder
 from homerhevc_tpu_torch.hevc.ctx_tables import init_contexts
 from homerhevc_tpu_torch.hevc.headers import (
-    SLICE_I, SLICE_P, ParamSets, SliceParams, write_pps, write_slice_header,
-    write_sps, write_vps,
+    SLICE_B, SLICE_I, SLICE_P, ParamSets, SliceParams, write_pps,
+    write_slice_header, write_sps, write_vps,
 )
 from homerhevc_tpu_torch.hevc.sao import sao_apply_component, sao_decide
 from homerhevc_tpu_torch.hevc.syntax import SliceDataEncoder
 from homerhevc_tpu_torch.utils.profiler import PROFILER
 
-# POC distance of each reference list's first entry: every P slice of the
-# slice predicts from the previous picture only
-_REF_DISTS = (1, 1)
+
+
+def _mref(desc, refs_before, poc):
+    """(num_ref_l0, ref_dists_l0) for a multi-reference slice, or (1, None)
+    when the desc carries no per-CU ref_idx (every slice the port codes:
+    two references ride the two lists)."""
+    if getattr(desc, "ref_idx", None) is None:
+        return 1, None
+    return len(refs_before), tuple(poc - rp for rp in refs_before)
+
+
+def _ref_dists(poc, refs_before, refs_after, l1_swap):
+    """POC(cur) - POC(first entry) of each reference list. L0 leads with
+    the closest past ref; L1 leads with the first future ref, or (under
+    ref_pic_list_modification l1_swap) the second past ref."""
+    refs_before = tuple(refs_before or ())
+    refs_after = tuple(refs_after or ())
+    if not refs_before and not refs_after:
+        return (1, 1)
+    l0 = refs_before[0] if refs_before else refs_after[0]
+    if refs_after:
+        l1 = refs_after[0]
+    elif l1_swap and len(refs_before) >= 2:
+        l1 = refs_before[1]
+    else:
+        l1 = refs_before[0]
+    return (poc - l0, poc - l1)
 
 
 def tree_ok(cfg: EncoderConfig) -> bool:
@@ -80,10 +113,9 @@ def unported(cfg: EncoderConfig) -> str | None:
          "golden path (RD_FULL, intra_rdo at CU16, CU32/CU64 without "
          "intra_rdo, whose I frames have no device program in IPPP either: "
          "Queue 1 item 7)"),
-        (cfg.num_b != 0, "B frames (Queue 1 item 5)"),
-        (inter and cfg.gpb, "generalized-B P frames (Queue 1 item 5)"),
-        (inter and cfg.num_ref_frames != 1,
-         "multi-reference P frames (Queue 1 item 5)"),
+        (inter and cfg.num_ref_frames > 2,
+         "multi-reference P frames with num_ref_frames > 2, which the JAX "
+         "package codes only on its numpy golden path (Queue 1 item 7)"),
         (cfg.num_devices != 1, "multi-GPU encoding (Queue 1 item 6)"),
     )
     for bad, what in checks:
@@ -150,10 +182,22 @@ class TorchPipeline:
         self._pending_q: list = []  # dispatched intra batches
         self._fetch_inflight = None  # _AsyncFetch of the oldest batch
         self._p_pendings: list = []  # dispatched P frames (depth 2)
-        # reference planes of the next P frame: the I frame's (filtered)
-        # recon, then each dispatched P frame's device-resident recon
+        # the P chain's references: _ref for the next P frame (the I
+        # frame's filtered recon, then each dispatched P frame's
+        # device-resident recon), _ref_prev the one before it on the
+        # chain (t-2, the list-1 reference of a generalized-B frame)
         self._ref = None
-        self._last_recon = None   # the last emitted frame's filtered recon
+        self._ref_prev = None
+        # the last emitted reference picture's filtered recon (a
+        # non-reference B never becomes it)
+        self._last_recon = None
+        # IBP: the next display index, the held odd frame, the IDR's
+        # display index and the anchor before the last (t-2 of an anchor
+        # that bi-predicts)
+        self._disp = 0
+        self._held = None
+        self._idr_base = 0
+        self._anchor_m2 = None
         self.avg_dist = 1000.0   # reference init, hmr_encoder_lib.c:913
         self.rc = RateControl(cfg)
         self._intra_enc = None
@@ -176,94 +220,103 @@ class TorchPipeline:
         if self._inter_enc is None:
             from homerhevc_tpu_torch.engine.inter_encoder import \
                 TorchInterEncoder
-            self._inter_enc = TorchInterEncoder(self.ps, self.cfg,
-                                                device=self.device)
+            self._inter_enc = TorchInterEncoder(
+                self.ps, self.cfg, search=self._inter_search_range(),
+                device=self.device)
         return self._inter_enc
+
+    def _inter_search_range(self) -> int:
+        # IBP anchors are two display frames apart: double the window so
+        # that anchor ME covers the same velocity as the IPPP chain
+        return 24 if self.cfg.num_b >= 1 else 16
 
     # ---- serialization ------------------------------------------------------
 
-    def _slice_params(self, slice_type, nal_type, qp, offsets=None,
-                      sao=False):
-        refs = (self.gop_poc - 1,) if slice_type != SLICE_I else ()
-        sp = SliceParams(slice_type=slice_type, nal_type=nal_type,
-                         poc=self.gop_poc, qp=qp, sao_luma=sao,
-                         sao_chroma=sao, ref_pocs_before=refs)
-        return write_slice_header(self.ps, sp, entry_point_offsets=offsets)
-
-    def _serialize_slice_wpp(self, desc, slice_type: int, nal_type: int,
-                             qp: int, sao_params=None) -> bytes:
-        """WPP slice: one CABAC substream per CTU row; contexts fork from the
-        state after the second CTB of the row above (spec entropy sync)."""
-        from homerhevc_tpu_torch import native
-        ps = self.ps
-        st = "I" if slice_type == SLICE_I else "P"
-        with PROFILER.scope("ser_native"):
-            res = native.encode_slice_native(
-                ps, desc, init_contexts(st, qp), ps.sign_hiding,
-                slice_type=slice_type, sao_params=sao_params, wpp=True,
-                ref_dists=_REF_DISTS, slice_qp=qp)
-        if res is not None:
-            payload, row_sizes = res
-        else:
-            rows = []
-            saved_ctx = None      # ctx snapshot after CTB 1 of the row above
-            for cy in range(ps.ctus_y):
-                ctx = (init_contexts(st, qp) if saved_ctx is None
-                       else saved_ctx.copy())
-                bw_row = BitWriter()
-                enc = CabacEncoder(bw_row, ctx)
-                sd = SliceDataEncoder(ps, desc, enc, slice_type, qp,
-                                      sao_params=sao_params,
-                                      ref_dists=_REF_DISTS)
-                for cx in range(ps.ctus_x):
-                    sd.encode_ctu(cx, cy)
-                    last_ctu = (cy == ps.ctus_y - 1) and (cx == ps.ctus_x - 1)
-                    sd.encode_ctu_end(end_of_slice=last_ctu)
-                    if cx == 1:
-                        saved_ctx = ctx.copy()
-                if cy != ps.ctus_y - 1:
-                    enc.encode_terminate(1)  # end_of_subset_one_bit
-                enc.finish()
-                bw_row.write_byte_alignment()
-                rows.append(bw_row.get_bytes())
-            payload = b"".join(rows)
-            row_sizes = [len(r) for r in rows]
-        # entry points count escaped bytes (spec 7.4.7.1)
-        with PROFILER.scope("ser_escapes"):
-            esc = ebsp_row_escapes(payload, row_sizes)
-        offsets = [s + e for s, e in zip(row_sizes[:-1], esc[:-1])]
-        bw = self._slice_params(slice_type, nal_type, qp, offsets,
-                                sao=sao_params is not None)
-        return make_nal(nal_type, bw.get_bytes() + payload)
-
     def _serialize_slice(self, desc, slice_type: int, nal_type: int,
-                         qp: int, sao_params=None) -> bytes:
-        ps = self.ps
-        if ps.wpp:
-            return self._serialize_slice_wpp(desc, slice_type, nal_type, qp,
-                                             sao_params)
+                         qp: int, sao_params=None, poc=None,
+                         refs_before=None, refs_after=(),
+                         l1_swap: bool = False) -> bytes:
+        """One slice NAL: the native C++ serializer (one CABAC substream
+        per CTU row under WPP, contexts forking from the state after the
+        second CTB of the row above), else the Python one. poc and the
+        reference POCs default to a P slice of the previous picture."""
         from homerhevc_tpu_torch import native
-        bw = self._slice_params(slice_type, nal_type, qp,
-                                sao=sao_params is not None)
-        ctx = init_contexts("I" if slice_type == SLICE_I else "P", qp)
+        ps = self.ps
+        poc = self.gop_poc if poc is None else poc
+        if refs_before is None:
+            refs_before = (poc - 1,) if slice_type != SLICE_I else ()
+        st = {SLICE_I: "I", SLICE_P: "P"}.get(slice_type, "B")
+        dists = _ref_dists(poc, refs_before, refs_after, l1_swap)
+        num_ref_l0, rdl0 = _mref(desc, refs_before, poc)
         with PROFILER.scope("ser_native"):
-            payload = native.encode_slice_native(
-                ps, desc, ctx, ps.sign_hiding, slice_type=slice_type,
-                sao_params=sao_params, ref_dists=_REF_DISTS, slice_qp=qp)
-        if payload is not None:
-            with PROFILER.scope("ser_nal"):
-                return make_nal(nal_type, bw.get_bytes() + payload)
-        # no native library (no g++): the Python serializer
-        enc = CabacEncoder(bw, ctx)
-        sd = SliceDataEncoder(ps, desc, enc, slice_type, qp,
-                              sao_params=sao_params, ref_dists=_REF_DISTS)
-        n_ctus = ps.ctus_x * ps.ctus_y
-        for i in range(n_ctus):
-            sd.encode_ctu(i % ps.ctus_x, i // ps.ctus_x)
-            sd.encode_ctu_end(end_of_slice=(i == n_ctus - 1))
-        enc.finish()
-        bw.write_byte_alignment()
-        return make_nal(nal_type, bw.get_bytes())
+            res = None if rdl0 is not None else native.encode_slice_native(
+                ps, desc, init_contexts(st, qp), ps.sign_hiding,
+                slice_type=slice_type, sao_params=sao_params, wpp=ps.wpp,
+                ref_dists=dists, slice_qp=qp)
+        offsets = None
+        if res is None:
+            # no native library (no g++): the Python serializer
+            res = self._serialize_python(desc, slice_type, st, qp,
+                                         sao_params, dists, rdl0)
+        if ps.wpp:
+            payload, row_sizes = res
+            # entry points count escaped bytes (spec 7.4.7.1)
+            with PROFILER.scope("ser_escapes"):
+                esc = ebsp_row_escapes(payload, row_sizes)
+            offsets = [s + e for s, e in zip(row_sizes[:-1], esc[:-1])]
+        else:
+            payload = res
+        sao = sao_params is not None
+        sp = SliceParams(slice_type=slice_type, nal_type=nal_type, poc=poc,
+                         qp=qp, sao_luma=sao, sao_chroma=sao,
+                         ref_pocs_before=refs_before,
+                         ref_pocs_after=refs_after, l1_swap=l1_swap,
+                         num_ref_l0=num_ref_l0)
+        bw = write_slice_header(ps, sp, entry_point_offsets=offsets)
+        with PROFILER.scope("ser_nal"):
+            return make_nal(nal_type, bw.get_bytes() + payload)
+
+    def _serialize_python(self, desc, slice_type, st, qp, sao_params, dists,
+                          rdl0):
+        """The Python CABAC serializer: the payload, or under WPP
+        (payload, row byte counts)."""
+        ps = self.ps
+
+        def data_encoder(enc):
+            return SliceDataEncoder(ps, desc, enc, slice_type, qp,
+                                    sao_params=sao_params, ref_dists=dists,
+                                    ref_dists_l0=rdl0)
+        if not ps.wpp:
+            bw = BitWriter()
+            enc = CabacEncoder(bw, init_contexts(st, qp))
+            sd = data_encoder(enc)
+            n_ctus = ps.ctus_x * ps.ctus_y
+            for i in range(n_ctus):
+                sd.encode_ctu(i % ps.ctus_x, i // ps.ctus_x)
+                sd.encode_ctu_end(end_of_slice=(i == n_ctus - 1))
+            enc.finish()
+            bw.write_byte_alignment()
+            return bw.get_bytes()
+        rows = []
+        saved_ctx = None      # ctx snapshot after CTB 1 of the row above
+        for cy in range(ps.ctus_y):
+            ctx = (init_contexts(st, qp) if saved_ctx is None
+                   else saved_ctx.copy())
+            bw_row = BitWriter()
+            enc = CabacEncoder(bw_row, ctx)
+            sd = data_encoder(enc)
+            for cx in range(ps.ctus_x):
+                sd.encode_ctu(cx, cy)
+                last_ctu = (cy == ps.ctus_y - 1) and (cx == ps.ctus_x - 1)
+                sd.encode_ctu_end(end_of_slice=last_ctu)
+                if cx == 1:
+                    saved_ctx = ctx.copy()
+            if cy != ps.ctus_y - 1:
+                enc.encode_terminate(1)  # end_of_subset_one_bit
+            enc.finish()
+            bw_row.write_byte_alignment()
+            rows.append(bw_row.get_bytes())
+        return b"".join(rows), [len(r) for r in rows]
 
     # ---- public flow -------------------------------------------------------
 
@@ -273,7 +326,9 @@ class TorchPipeline:
         ip = self.cfg.intra_period
         return ip > 0 and poc % ip == 0
 
-    def _emit(self, desc, ry, ru, rv, src, slice_type=SLICE_I, qp=None):
+    def _emit(self, desc, ry, ru, rv, src, slice_type=SLICE_I, qp=None,
+              poc=None, refs_before=None, refs_after=(), is_ref=True,
+              display_poc=None, l1_swap=False):
         from homerhevc_tpu_torch.api import EncodedFrame
         qp = self.cfg.qp if qp is None else qp
         # device-decided SAO: the recon arrived filtered and the host only
@@ -288,7 +343,8 @@ class TorchPipeline:
                 ry = sao_apply_component(ry, sao_params, 0, ctu)
                 ru = sao_apply_component(ru, sao_params, 1, ctu // 2)
                 rv = sao_apply_component(rv, sao_params, 2, ctu // 2)
-        self._last_recon = (ry, ru, rv)
+        if is_ref:
+            self._last_recon = (ry, ru, rv)
         nals = []
         if slice_type == SLICE_I:
             self.gop_poc = 0
@@ -296,10 +352,12 @@ class TorchPipeline:
             nals += [write_vps(self.ps), write_sps(self.ps),
                      write_pps(self.ps)]
         else:
-            nal_type = NAL_TRAIL_R
+            nal_type = NAL_TRAIL_R if is_ref else NAL_TRAIL_N
         with PROFILER.scope("serialize"):
-            nals.append(self._serialize_slice(desc, slice_type, nal_type, qp,
-                                              sao_params))
+            nals.append(self._serialize_slice(
+                desc, slice_type, nal_type, qp, sao_params, poc=poc,
+                refs_before=refs_before, refs_after=refs_after,
+                l1_swap=l1_swap))
         if self.cfg.gop_size != 0:
             # average luma distortion per 4x4 partition, feeding the adaptive
             # inter zero-forcing threshold (reference avg_dist,
@@ -321,8 +379,9 @@ class TorchPipeline:
             return {"y": np.asarray(ry, np.uint8)[:oh, :ow],
                     "u": np.asarray(ru, np.uint8)[:oh // 2, :ow // 2],
                     "v": np.asarray(rv, np.uint8)[:oh // 2, :ow // 2]}
-        ef = EncodedFrame(self.poc, "I" if slice_type == SLICE_I else "P",
-                          nals, recon=recon_thunk, avg_qp=qp)
+        ftype = {SLICE_I: "I", SLICE_P: "P"}.get(slice_type, "B")
+        ef = EncodedFrame(self.poc if display_poc is None else display_poc,
+                          ftype, nals, recon=recon_thunk, avg_qp=qp)
         self.rc.end_pic(ef.bits, slice_type == SLICE_I)
         self.poc += 1
         self.gop_poc += 1
@@ -344,9 +403,15 @@ class TorchPipeline:
             # before any inline-analyzed frame is emitted
             yield from self._drain_intra_batches()
             for fr in frames:
-                yield from self._encode_one(*fr)
+                if self.cfg.num_b >= 1:
+                    yield from self._encode_gop2(fr)
+                else:
+                    yield from self._encode_one(*fr)
         if final:
             yield from self._drain_p_pending()
+            if self.cfg.num_b >= 1 and self._held is not None:
+                # the held frame has no later anchor: a trailing P
+                yield from self._trailing_p()
             yield from self._drain_intra_batches()
 
     def _encode_one(self, y, u, v) -> Iterator:
@@ -368,8 +433,9 @@ class TorchPipeline:
             with PROFILER.scope("analyze_intra_device"):
                 desc, ry, ru, rv = self._intra().encode_frame(y, u, v, qp)
             ef = self._emit(desc, ry, ru, rv, (y, u, v), qp=qp)
-            # the next P frame predicts from the recon as filtered by SAO
-            self._ref = self._last_recon
+            # the next P frame predicts from the recon as filtered by SAO;
+            # references never cross an IDR
+            self._ref, self._ref_prev = self._last_recon, None
             yield ef
             return
         # P chain: dispatch frame i on the device (its ME reads the
@@ -377,22 +443,136 @@ class TorchPipeline:
         # (download, syntax selection, CABAC) while the device runs. Depth
         # 2: the avg_dist zero-forcing feedback lags 2 frames, like the
         # reference's cross-engine RC handoff (hmr_encoder_lib.c:3268).
+        # Generalized-B (cfg.gpb, or num_ref_frames 2 realized as the
+        # two-list t-1 / t-2 machinery): once two references exist, the
+        # frame bi-predicts from t-1 (list 0) and t-2 (list 1), at CTU 32.
         enc = self._inter()
+        ref, ref2 = self._ref, self._ref_prev
+        gpb = ((self.cfg.gpb or self.cfg.num_ref_frames >= 2)
+               and ref2 is not None and self.ps.ctu_size == 32)
         with PROFILER.scope("dispatch_inter"):
-            out = enc.dispatch((y, u, v), self._ref, self.avg_dist, qp=qp)
-        self._ref = enc.last_dev
-        self._p_pendings.append((out, (y, u, v), qp))
+            if gpb:
+                out = enc.dispatch_b((y, u, v), ref, ref2, self.avg_dist,
+                                     qp=qp)
+            else:
+                out = enc.dispatch((y, u, v), ref, self.avg_dist, qp=qp)
+        self._ref_prev, self._ref = ref, enc.last_dev
+        self._p_pendings.append((out, (y, u, v), qp, gpb))
         if len(self._p_pendings) >= 2:
             yield from self._drain_p_pending(one=True)
 
     def _drain_p_pending(self, one: bool = False) -> Iterator:
         while self._p_pendings:
-            out, src, qp = self._p_pendings.pop(0)
+            out, src, qp, gpb = self._p_pendings.pop(0)
             with PROFILER.scope("fetch_inter"):
-                desc, ry, ru, rv = self._inter().fetch(out)
-            yield self._emit(desc, ry, ru, rv, src, slice_type=SLICE_P, qp=qp)
+                desc, ry, ru, rv = self._inter().fetch(out, bi=gpb,
+                                                       ref_dists=(1, 2))
+            if gpb:
+                p = self.gop_poc
+                yield self._emit(desc, ry, ru, rv, src, slice_type=SLICE_B,
+                                 qp=qp, refs_before=(p - 1, p - 2),
+                                 l1_swap=True)
+            else:
+                yield self._emit(desc, ry, ru, rv, src, slice_type=SLICE_P,
+                                 qp=qp)
             if one:
                 return
+
+    # ---- IBP (gop_size 2, one B between anchors) --------------------------
+
+    def _inter_frame(self, fr, qp, ref=None, is_b=False):
+        """One P frame (or, with is_b, a B frame of uni-L0 CUs) coded
+        inline against ref, by default the last reference picture."""
+        ref = self._last_recon if ref is None else ref
+        with PROFILER.scope("analyze_inter_device"):
+            return self._inter().encode_frame(fr, ref, self.avg_dist, qp=qp,
+                                              is_b=is_b)
+
+    def _trailing_p(self) -> Iterator:
+        """The held frame as a P frame of the anchor before it (closed GOP
+        before an IDR, and at the end of the stream)."""
+        bt, fb = self._held
+        self._held = None
+        qb = self.rc.pic_qp(False)
+        desc, ry, ru, rv = self._inter_frame(fb, qb)
+        yield self._emit(desc, ry, ru, rv, fb, slice_type=SLICE_P, qp=qb,
+                         poc=bt - self._idr_base, display_poc=bt,
+                         refs_before=(bt - 1 - self._idr_base,))
+
+    def _bi_ok(self) -> bool:
+        """The bi-predicted program serves this geometry (the CU32/CU16
+        tree at CTU 32)."""
+        return (self.ps.ctu_size == 32 and self.cfg.width % 32 == 0
+                and self.cfg.height % 32 == 0)
+
+    def _encode_gop2(self, fr) -> Iterator:
+        """IBP: anchors at even display positions, one B between them,
+        emitted in decode order I0 P2 B1 A4 B3 ... Each anchor predicts
+        from the anchor before it, two display frames back (from the third
+        anchor on, at CTU 32, bi-predicted from the two previous anchors:
+        t-2 in list 0, t-4 in list 1 by l1_swap); each B, a non-reference
+        picture, from both anchors around it (at CTU 32; elsewhere from the
+        earlier one alone) with the B QP offset. No scene-cut check, as in
+        the JAX package."""
+        t = self._disp
+        self._disp += 1
+        ip = self.cfg.intra_period
+        intra = t == 0 or (ip > 0 and (t - self._idr_base) % ip == 0)
+        if t % 2 == 1 and not intra:
+            self._held = (t, fr)
+            return
+        prev_anchor = self._last_recon
+        qp = self.rc.pic_qp(intra)
+        if intra:
+            if self._held is not None:
+                yield from self._trailing_p()    # closed GOP before the IDR
+            self._idr_base = t
+            with PROFILER.scope("analyze_intra_device"):
+                desc, ry, ru, rv = self._intra().encode_frame(*fr, qp)
+            self._anchor_m2 = None
+            yield self._emit(desc, ry, ru, rv, fr, qp=qp, display_poc=t)
+        else:
+            poc = t - self._idr_base
+            held = self._held is not None
+            prev2 = self._anchor_m2
+            if held and prev2 is not None and self._bi_ok():
+                # a generalized-B anchor: list 0 the previous anchor (t-2),
+                # list 1 the one before (t-4); per-CU uni / bi keeps the
+                # quality at the two distances
+                with PROFILER.scope("analyze_anchor_bi"):
+                    desc, ry, ru, rv = self._inter().encode_frame_b(
+                        fr, self._last_recon, prev2, self.avg_dist, qp=qp,
+                        ref_dists=(2, 4))
+                self._anchor_m2 = self._last_recon
+                yield self._emit(desc, ry, ru, rv, fr, slice_type=SLICE_B,
+                                 qp=qp, poc=poc, display_poc=t,
+                                 refs_before=(poc - 2, poc - 4),
+                                 l1_swap=True)
+            else:
+                self._anchor_m2 = self._last_recon if held else None
+                desc, ry, ru, rv = self._inter_frame(fr, qp)
+                yield self._emit(desc, ry, ru, rv, fr, slice_type=SLICE_P,
+                                 qp=qp, poc=poc, display_poc=t,
+                                 refs_before=(poc - 2 if held else poc - 1,))
+        if self._held is None:
+            return
+        # the held B, now that its later anchor is reconstructed: a
+        # non-reference picture one step down the QP ladder
+        # (cfg.b_qp_offset, the reference's depth-scaled lambda)
+        bt, fb = self._held
+        self._held = None
+        bpoc = bt - self._idr_base
+        qb = min(51, self.rc.pic_qp(False) + self.cfg.b_qp_offset)
+        if self._bi_ok():
+            with PROFILER.scope("analyze_b_bi"):
+                desc, ry, ru, rv = self._inter().encode_frame_b(
+                    fb, prev_anchor, self._last_recon, self.avg_dist, qp=qb)
+        else:
+            desc, ry, ru, rv = self._inter_frame(fb, qb, ref=prev_anchor,
+                                                 is_b=True)
+        yield self._emit(desc, ry, ru, rv, fb, slice_type=SLICE_B, qp=qb,
+                         poc=bpoc, display_poc=bt, refs_before=(bpoc - 1,),
+                         refs_after=(bpoc + 1,), is_ref=False)
 
     def _dispatch_upload(self, enc) -> Iterator:
         """Dispatch the oldest uploaded batch; serialize the batch whose

@@ -206,8 +206,12 @@ def amvp_candidates_2(mf: MotionField, x0: int, y0: int, n: int,
     Neighbour priority: A = first same-POC hit over (A0, A1) in (LX, LY)
     order; if none and any A neighbour is coded inter, the first motion
     over (A0, A1) scaled by distance ratio. B = same-POC over (B0, B1,
-    B2); the scaled B pass runs only when NO A neighbour exists
-    (isScaledFlagLX == 0). Reference analog: POC scaling at
+    B2). When NO A neighbour exists (isScaledFlagLX == 0, spec 8.5.3.2.7
+    steps 4-5, HM fillMvpCand), that same-POC B takes A's place and B is
+    derived again as the first B neighbour's motion, scaled: the list is
+    [same-POC B, scaled B] before the duplicate check. (The JAX package's
+    copy keeps only the same-POC B there, a list a decoder does not
+    derive: ROADMAP Queue 3.) Reference analog: POC scaling at
     hmr_motion_inter.c:2218."""
     def nb(x, y):
         if x < 0 or y < 0 or x >= pic_w or y >= pic_h:
@@ -252,7 +256,8 @@ def amvp_candidates_2(mf: MotionField, x0: int, y0: int, n: int,
     if mv_a is None and avail_a:
         mv_a = next((r for r in map(scaled, A) if r is not None), None)
     mv_b = next((r for r in map(same_poc, Bc) if r is not None), None)
-    if mv_b is None and not avail_a:
+    if not avail_a:
+        mv_a = mv_b
         mv_b = next((r for r in map(scaled, Bc) if r is not None), None)
 
     lst = []

@@ -875,7 +875,7 @@ struct Enc {
     return out->h0 || out->h1;
   }
   // two-list spatial AMVP with scaling (twin of hevc/inter.py
-  // amvp_candidates_2; HM xEstimateMvPredAMVP order)
+  // amvp_candidates_2; HM fillMvpCand order)
   void amvp_list_2(int x0, int y0, int n, int lx, MV out[2]) const {
     int dists[2] = {p.dist0, p.dist1};
     int ly = 1 - lx;
@@ -918,9 +918,15 @@ struct Enc {
         if (hA[k] && scaled(A[k], &mva)) have_a = true;
     for (int k = 0; k < 3 && !have_b; k++)
       if (hB[k] && same_poc(B[k], &mvb)) have_b = true;
-    if (!have_b && !avail_a)
+    if (!avail_a) {
+      // isScaledFlagLX == 0 (spec 8.5.3.2.7 steps 4-5): the same-POC B
+      // takes A's place and B is derived again, scaled
+      have_a = have_b;
+      mva = mvb;
+      have_b = false;
       for (int k = 0; k < 3 && !have_b; k++)
         if (hB[k] && scaled(B[k], &mvb)) have_b = true;
+    }
     int cnt = 0;
     if (have_a) out[cnt++] = mva;
     if (have_b && (!have_a || mvb.x != mva.x || mvb.y != mva.y))

@@ -1,5 +1,7 @@
-"""Batched MC interpolation (PyTorch port of the pieces of
-homerhevc_tpu/ops/interp.py that the flat CU16 P program uses).
+"""Batched MC interpolation (PyTorch port of homerhevc_tpu/ops/interp.py:
+luma and chroma MC per block, the 14-bit chroma intermediate the
+bi-prediction average reads, and the 16 quarter-pel phase planes of a
+whole reference with MC sampled from them).
 
 The JAX version contracts taps with int32 einsums; CUDA matmuls take no
 integer operands, so the filters here are explicit integer tap loops over
@@ -70,18 +72,80 @@ def extract_patches(pad_plane: torch.Tensor, by: torch.Tensor,
     return pad_plane[rows, cols]
 
 
+def mc_luma_batch(ref_pad: torch.Tensor, pad: int, x0s: torch.Tensor,
+                  y0s: torch.Tensor, n: int,
+                  mvs: torch.Tensor) -> torch.Tensor:
+    """Batched luma MC: ref_pad is the reference edge-padded by `pad`;
+    x0s/y0s (B,) block origins (unpadded coords); mvs (B, 2) quarter-pel.
+    Returns (B, n, n) int32 pixels."""
+    mvx, mvy = mvs[:, 0], mvs[:, 1]
+    by = y0s + (mvy >> 2) + pad - 3
+    bx = x0s + (mvx >> 2) + pad - 3
+    patch = extract_patches(ref_pad, by, bx, n + 7).to(torch.int32)
+    lt = _taps("luma", ref_pad.device)
+    h = _filter(patch, lt[(mvx & 3).long()], axis=2)    # (B, n+7, n)
+    v = _filter(h, lt[(mvy & 3).long()], axis=1) >> 6   # (B, n, n)
+    return torch.clamp((v + 32) >> 6, 0, 255)
+
+
+def luma_phase_planes(ref_pad: torch.Tensor) -> torch.Tensor:
+    """All 16 quarter-pel interpolated planes of an edge-padded reference,
+    filtered over the whole plane (two separable passes). Returns
+    (16, Hp-7, Wp-7) uint8, phase index fy*4 + fx; sampling it equals
+    mc_luma_batch."""
+    P = ref_pad.to(torch.int32)
+    Hp, Wp = P.shape
+    lt = _taps("luma", ref_pad.device)
+    # h[fx, y, x] = sum_k taps[fx, k] P[y, x + k]; then
+    # v[fy, fx, y, x] = sum_k taps[fy, k] h[fx, y + k, x]
+    h = sum(lt[:, k, None, None] * P[None, :, k:k + Wp - 7]
+            for k in range(8))                          # (4, Hp, Wp-7)
+    v = sum(lt[:, k, None, None, None] * h[None, :, k:k + Hp - 7]
+            for k in range(8)) >> 6                     # (4, 4, Hp-7, Wp-7)
+    out = torch.clamp((v + 32) >> 6, 0, 255).to(torch.uint8)
+    return out.reshape(16, Hp - 7, Wp - 7)
+
+
+def mc_luma_batch_planes(planes: torch.Tensor, pad: int, x0s: torch.Tensor,
+                         y0s: torch.Tensor, n: int,
+                         mvs: torch.Tensor) -> torch.Tensor:
+    """Batched luma MC sampled from the phase planes of the same padded
+    reference (luma_phase_planes): the same (B, n, n) int32 as
+    mc_luma_batch(ref_pad, pad, ...)."""
+    mvx, mvy = mvs[:, 0], mvs[:, 1]
+    p = ((mvy & 3) * 4 + (mvx & 3)).long()
+    by = (y0s + (mvy >> 2) + pad - 3).long()
+    bx = (x0s + (mvx >> 2) + pad - 3).long()
+    ar = torch.arange(n, device=planes.device)
+    rows = by[:, None, None] + ar[None, :, None]
+    cols = bx[:, None, None] + ar[None, None, :]
+    return planes[p[:, None, None], rows, cols].to(torch.int32)
+
+
+def _chroma_14(ref_pad: torch.Tensor, pad: int, x0s: torch.Tensor,
+               y0s: torch.Tensor, n: int, mvs: torch.Tensor) -> torch.Tensor:
+    """The chroma filter's 14-bit output (before rounding to 8 bits)."""
+    mvx, mvy = mvs[:, 0], mvs[:, 1]
+    by = y0s + (mvy >> 3) + pad - 1
+    bx = x0s + (mvx >> 3) + pad - 1
+    patch = extract_patches(ref_pad, by, bx, n + 3).to(torch.int32)
+    ct = _taps("chroma", ref_pad.device)
+    h = _filter(patch, ct[(mvx & 7).long()], axis=2)    # (B, n+3, n)
+    return _filter(h, ct[(mvy & 7).long()], axis=1) >> 6
+
+
 def mc_chroma_batch(ref_pad: torch.Tensor, pad: int, x0s: torch.Tensor,
                     y0s: torch.Tensor, n: int,
                     mvs: torch.Tensor) -> torch.Tensor:
     """Batched chroma MC: mvs are the LUMA quarter-pel MVs (chroma
     eighth-pel). Block origins in chroma coords. Returns (B, n, n) int32."""
-    mvx, mvy = mvs[:, 0], mvs[:, 1]
-    ix, iy = mvx >> 3, mvy >> 3
-    fx, fy = (mvx & 7).long(), (mvy & 7).long()
-    by = y0s + iy + pad - 1
-    bx = x0s + ix + pad - 1
-    patch = extract_patches(ref_pad, by, bx, n + 3).to(torch.int32)
-    ct = _taps("chroma", ref_pad.device)
-    h = _filter(patch, ct[fx], axis=2)                  # (B, n+3, n)
-    v = _filter(h, ct[fy], axis=1) >> 6                 # (B, n, n)
+    v = _chroma_14(ref_pad, pad, x0s, y0s, n, mvs)
     return torch.clamp((v + 32) >> 6, 0, 255)
+
+
+def mc_chroma_batch_14(ref_pad: torch.Tensor, pad: int, x0s: torch.Tensor,
+                       y0s: torch.Tensor, n: int,
+                       mvs: torch.Tensor) -> torch.Tensor:
+    """14-bit intermediate chroma MC, the input of the bi-prediction
+    average (golden twin mc_chroma_14): (B, n, n) int32, not rounded."""
+    return _chroma_14(ref_pad, pad, x0s, y0s, n, mvs)

@@ -3,11 +3,19 @@
 between them by the tensors' device.
 
 Port of homerhevc_tpu/ops/pallas/me_sad.py (coarse_sweep_sads and its
-oracle coarse_sweep_sads_ref). The samples are 8-bit: both call sites
-sweep uint8 planes (a decimated mean and its edge padding), so the port
-takes uint8 tensors where the JAX function takes int16 ones. The wrapper
-never probes and never falls back: a CPU tensor runs the plain version, a
-CUDA tensor launches the kernel or raises.
+oracle coarse_sweep_sads_ref). The reference is always 8-bit (the edge
+padding of a decimated recon, uint8). The source's dtype names the entry
+point, and no source is ever cast:
+  - uint8, the samples [0, 255] of a decimated source plane (the P
+    program, and the B program's searches against the source);
+  - int16, any int16 values, for the B program's bi target
+    2 * src - pred, in [-255, 510]: the kernel's wide entry point sweeps
+    the source clamped to [0, 255] and adds each block's excess
+    sum |s - clamp(s, 0, 255)| as it stores (csrc/me_sad.cu).
+Any other dtype raises TypeError. The JAX function takes the same values
+as int16 in both cases. The wrapper never probes and never falls back: a
+CPU tensor runs the plain version, a CUDA tensor launches the kernel or
+raises.
 
 The kernel is compiled with nvcc for sm_90a into _build/ at first use and
 loaded with ctypes (a plain C entry point; no PyTorch headers).
@@ -59,29 +67,38 @@ def compile_library(path: str, extra_flags=(), src: str = _SRC
     lib.coarse_sweep_sads_launch.restype = ctypes.c_int
     lib.coarse_sweep_sads_launch.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.coarse_sweep_sads_wide_launch.restype = ctypes.c_int
+    lib.coarse_sweep_sads_wide_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     return lib
 
 
-def build() -> str:
+def build() -> ctypes.CDLL:
     """Compile csrc/me_sad.cu into _build/libme_sad.so and load it, once
-    per process. Returns the library path."""
+    per process. Returns the library."""
     global _lib
     with _lock:
         if _lib is None:
             _lib = compile_library(_SO)
-        return _SO
+        return _lib
 
 
 def launch(lib, sd: torch.Tensor, ref_pad: torch.Tensor, out: torch.Tensor,
-           R: int, m: int) -> None:
-    """Launch `lib`'s sweep on the current stream of the tensors' card;
-    raises if the launch is refused."""
+           R: int, m: int, excess: torch.Tensor | None = None) -> None:
+    """Launch `lib`'s sweep on the current stream of the tensors' card (the
+    wide entry point when the per-block excess is given); raises if the
+    launch is refused."""
     gh, gw = sd.shape[0] // m, sd.shape[1] // m
     with torch.cuda.device(sd.device):
         stream = torch.cuda.current_stream(sd.device).cuda_stream
-        err = lib.coarse_sweep_sads_launch(
-            sd.data_ptr(), ref_pad.data_ptr(), out.data_ptr(), gh, gw, m, R,
-            stream)
+        if excess is None:
+            err = lib.coarse_sweep_sads_launch(
+                sd.data_ptr(), ref_pad.data_ptr(), out.data_ptr(), gh, gw, m,
+                R, stream)
+        else:
+            err = lib.coarse_sweep_sads_wide_launch(
+                sd.data_ptr(), ref_pad.data_ptr(), excess.data_ptr(),
+                out.data_ptr(), gh, gw, m, R, stream)
     if err != 0:
         raise RuntimeError(f"coarse_sweep_sads launch failed: CUDA error "
                            f"{err}")
@@ -90,7 +107,8 @@ def launch(lib, sd: torch.Tensor, ref_pad: torch.Tensor, out: torch.Tensor,
 def coarse_sweep_sads_plain(sd: torch.Tensor, ref_pad: torch.Tensor,
                             R: int, m: int) -> torch.Tensor:
     """Plain PyTorch twin (the unrolled shifted-plane sweep of
-    coarse_sweep_sads_ref): (side^2, gh, gw) int32."""
+    coarse_sweep_sads_ref) for either source dtype, |s - r| summed in
+    int32: (side^2, gh, gw) int32."""
     gh = sd.shape[0] // m
     gw = sd.shape[1] // m
     side = 2 * R + 1
@@ -108,9 +126,11 @@ def coarse_sweep_sads_plain(sd: torch.Tensor, ref_pad: torch.Tensor,
 def _check(sd: torch.Tensor, ref_pad: torch.Tensor, R: int, m: int):
     if m < 1 or R < 1:
         raise ValueError(f"need m >= 1 and R >= 1, got m={m} R={R}")
+    if sd.dtype not in (torch.uint8, torch.int16):
+        raise TypeError(f"sd must be uint8 or int16, got {sd.dtype}")
+    if ref_pad.dtype != torch.uint8:
+        raise TypeError(f"ref_pad must be uint8, got {ref_pad.dtype}")
     for name, t in (("sd", sd), ("ref_pad", ref_pad)):
-        if t.dtype != torch.uint8:
-            raise TypeError(f"{name} must be uint8, got {t.dtype}")
         if t.ndim != 2:
             raise ValueError(f"{name} must be 2D, got shape {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -131,7 +151,8 @@ def coarse_sweep_sads(sd: torch.Tensor, ref_pad: torch.Tensor, R: int,
     """(side^2, gh, gw) int32 block SADs of the decimated source vs every
     (dy, dx) in [-R, R]^2 of the edge-padded decimated reference.
 
-    sd:      (gh*m, gw*m) uint8 decimated source, contiguous
+    sd:      (gh*m, gw*m) decimated source, contiguous: uint8 (8-bit
+             entry point) or int16 (wide entry point, any int16 values)
     ref_pad: (gh*m + 2R, gw*m + 2R) uint8 reference, edge-padded by R
 
     The CUDA kernel takes m a multiple of 8 (m = cu/2 of the CU16 and CU32
@@ -145,10 +166,26 @@ def coarse_sweep_sads(sd: torch.Tensor, ref_pad: torch.Tensor, R: int,
     if m % 8 or R > 255:
         raise ValueError(f"the CUDA sweep takes m a multiple of 8 and "
                          f"R <= 255, got m={m} R={R}")
-    build()
+    lib = build()
     side = 2 * R + 1
     out = torch.empty((side * side, sd.shape[0] // m, sd.shape[1] // m),
                       dtype=torch.int32, device=sd.device)
-    launch(_lib, sd, ref_pad, out, R, m)
-    LAUNCHES["coarse_sweep_sads"] += 1
+    if sd.dtype == torch.uint8:
+        launch(lib, sd, ref_pad, out, R, m)
+        LAUNCHES["coarse_sweep_sads"] += 1
+        return out
+    clamped, excess = wide_parts(sd, m)
+    launch(lib, clamped, ref_pad, out, R, m, excess)
+    LAUNCHES["coarse_sweep_sads_wide"] += 1
     return out
+
+
+def wide_parts(sd: torch.Tensor, m: int):
+    """The wide entry point's inputs from an int16 source: the source
+    clamped to [0, 255] (so its uint8 copy is exact) and each m x m
+    block's excess, the int32 sum of |s - clamp(s, 0, 255)|."""
+    clamped = sd.clamp(0, 255)
+    excess = (sd.to(torch.int32) - clamped).abs() \
+        .reshape(sd.shape[0] // m, m, sd.shape[1] // m, m) \
+        .sum(dim=(1, 3), dtype=torch.int32)
+    return clamped.to(torch.uint8), excess

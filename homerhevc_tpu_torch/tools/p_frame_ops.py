@@ -1,13 +1,16 @@
-"""Count the aten operations one P frame of the port dispatches.
+"""Count the aten operations one P frame (or bi frame) of the port
+dispatches.
 
     python3 -m homerhevc_tpu_torch.tools.p_frame_ops [--device cuda]
-        [--size 256x128] [--cu 64] [--perf 0] [--no-sao]
+        [--size 256x128] [--cu 64] [--perf 0] [--no-sao] [--bi]
 
 A TorchDispatchMode sees every aten operation that
 TorchInterEncoder.dispatch runs for one P frame (IPPP, intra_rdo,
 deblocking, SAO and sign hiding at QP 32, the configuration of
-chip_smoke.py's path C; --no-sao turns SAO off), after one frame that
-warms the caches, on chip_smoke.py's bench clip. On a CUDA device most
+chip_smoke.py's path C; --no-sao turns SAO off), or with --bi
+TorchInterEncoder.dispatch_b for one bi-capable frame (IBP at CTU 32,
+search 24: chip_smoke.py's path D), after one frame that warms the
+caches, on chip_smoke.py's bench clip. On a CUDA device most
 operations that are not views launch one kernel (a view launches none, a
 few operations none or two), so their count approximates the launches of
 a P frame before it runs on the card. The device is the card unless
@@ -43,10 +46,11 @@ class OpCounter(TorchDispatchMode):
 
 
 def p_frame_config(w: int, h: int, cu: int, perf: int = 0,
-                   sao: bool = True):
-    """chip_smoke.py path C's configuration at w x h."""
+                   sao: bool = True, gop_size: int = 1):
+    """chip_smoke.py path C's configuration at w x h (path D's with
+    gop_size 2)."""
     from homerhevc_tpu_torch.config import EncoderConfig
-    return EncoderConfig(width=w, height=h, cu_size=cu, gop_size=1,
+    return EncoderConfig(width=w, height=h, cu_size=cu, gop_size=gop_size,
                          intra_period=0, qp=32, intra_rdo=True,
                          sign_hiding=True, deblocking=True, sao=sao,
                          me_range=32, performance_mode=perf)
@@ -73,9 +77,18 @@ def bench_clip(w: int, h: int, n: int, seed: int = 42):
 
 def count_p_frame(enc, src, ref):
     """(all aten operations, those not views) of one enc.dispatch."""
+    return _count(enc, lambda: enc.dispatch(src, ref))
+
+
+def count_b_frame(enc, src, ref0, ref1):
+    """(all aten operations, those not views) of one enc.dispatch_b."""
+    return _count(enc, lambda: enc.dispatch_b(src, ref0, ref1))
+
+
+def _count(enc, dispatch):
     counter = OpCounter()
     with counter:
-        enc.dispatch(src, ref)
+        dispatch()
     if enc.device.type == "cuda":
         torch.cuda.synchronize()
     return sum(counter.ops.values()), sum(counter.compute.values())
@@ -88,6 +101,7 @@ def main():
     ap.add_argument("--cu", type=int, default=64)
     ap.add_argument("--perf", type=int, default=0)
     ap.add_argument("--no-sao", action="store_true")
+    ap.add_argument("--bi", action="store_true")
     a = ap.parse_args()
     from homerhevc_tpu_torch.device import resolve_device
     from homerhevc_tpu_torch.engine.inter_encoder import TorchInterEncoder
@@ -95,15 +109,23 @@ def main():
     from homerhevc_tpu_torch.state import reference_from_numpy
     device = resolve_device(a.device)
     w, h = (int(s) for s in a.size.split("x"))
-    cfg = p_frame_config(w, h, a.cu, a.perf, sao=not a.no_sao)
-    enc = TorchInterEncoder(ParamSets.from_config(cfg), cfg, device=device)
-    frames = bench_clip(w, h, 3)
+    cfg = p_frame_config(w, h, a.cu, a.perf, sao=not a.no_sao,
+                         gop_size=2 if a.bi else 1)
+    enc = TorchInterEncoder(ParamSets.from_config(cfg), cfg,
+                            search=24 if a.bi else 16, device=device)
+    frames = bench_clip(w, h, 4)
     ref = reference_from_numpy(frames[0], device)
-    enc.dispatch(frames[1], ref)                       # warm-up
-    ops, compute = count_p_frame(enc, frames[2], ref)
+    if a.bi:
+        ref1 = reference_from_numpy(frames[3], device)
+        enc.dispatch_b(frames[1], ref, ref1)           # warm-up
+        ops, compute = count_b_frame(enc, frames[2], ref, ref1)
+    else:
+        enc.dispatch(frames[1], ref)                   # warm-up
+        ops, compute = count_p_frame(enc, frames[2], ref)
     print(json.dumps({"size": a.size, "cu": a.cu, "perf": a.perf,
-                      "sao": not a.no_sao, "device": str(device),
-                      "aten_ops": ops, "not_views": compute}), flush=True)
+                      "sao": not a.no_sao, "bi": a.bi,
+                      "device": str(device), "aten_ops": ops,
+                      "not_views": compute}), flush=True)
 
 
 if __name__ == "__main__":

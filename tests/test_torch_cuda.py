@@ -1,8 +1,10 @@
 """Tests of the torch port that need an NVIDIA card: the hand-written CUDA
-kernel against its plain version, the wrapper's checks on CUDA tensors,
-and the encoders (flat CU16 I and P, the intra CU tree, device SAO, the
-CU-tree P program with the FAR level and intra-in-P) and the ops they add
-on the card against the same code on the CPU. They skip here with a
+kernel (its 8-bit and wide-source entry points) against its plain
+version, the wrapper's checks on CUDA tensors, and the encoders (flat
+CU16 I and P, the intra CU tree, device SAO, the CU-tree P program with
+the FAR level and intra-in-P, the bi-capable B program, the
+generalized-B chain) and the ops they add on the card against the same
+code on the CPU. They skip here with a
 reason. This file imports no jax, so on the card's machine it runs
 without the JAX package's conftest:
 
@@ -58,6 +60,27 @@ def test_kernel_matches_plain(card, gh, gw, R, m):
     torch.cuda.synchronize()
     assert LAUNCHES["coarse_sweep_sads"] == before + 1
     assert got.dtype == torch.int32 and got.device.type == "cuda"
+    assert torch.equal(got, me_sad.coarse_sweep_sads_plain(sd, rp, R, m))
+
+
+# the B program's bi target (2 * src - pred, in [-255, 510]) at the 720p
+# and 1088-line IBP shapes (R = 24), a ragged grid, m = 16, and sources
+# at the int16 extremes
+@pytest.mark.parametrize("gh,gw,R,m,lo,hi", [
+    (45, 80, 24, 8, -255, 510), (68, 120, 24, 8, -255, 510),
+    (3, 5, 16, 8, -255, 510), (22, 40, 24, 16, -255, 510),
+    (2, 21, 4, 8, -32768, 32767)])
+def test_wide_kernel_matches_plain(card, gh, gw, R, m, lo, hi):
+    rng = np.random.RandomState(gh * gw + R)
+    sd = torch.from_numpy(rng.randint(lo, hi + 1, (gh * m, gw * m))
+                          .astype(np.int16)).to(card)
+    rp = _sweep_inputs(gh + R, gh, gw, R, m, card)[1]
+    before = dict(LAUNCHES)
+    got = me_sad.coarse_sweep_sads(sd, rp, R, m)
+    torch.cuda.synchronize()
+    assert LAUNCHES["coarse_sweep_sads_wide"] == \
+        before["coarse_sweep_sads_wide"] + 1
+    assert LAUNCHES["coarse_sweep_sads"] == before["coarse_sweep_sads"]
     assert torch.equal(got, me_sad.coarse_sweep_sads_plain(sd, rp, R, m))
 
 
@@ -167,6 +190,68 @@ def test_tree_p_frame_on_card_matches_cpu(card, cu, perf, me_range,
         assert np.array_equal(a, b)
     _assert_sao_equal(cd.sao_params, gd.sao_params)
     assert (cd.cu_depth < ps.log2_ctu - 4).any()
+
+
+def test_b_program_on_card_matches_cpu(card):
+    """The bi-capable program (_impl_b) at CTU 32 with deblocking and SAO
+    from two noisy shifted references: every desc field (both lists),
+    recon and SAO parameter equals the CPU path's; the sweep runs twice
+    on the source (8-bit) and once on the bi target (wide)."""
+    w, h = 128, 96
+    rng = np.random.RandomState(17)
+    y, u, v = _frame(rng, w, h)
+    cfg = EncoderConfig(width=w, height=h, qp=32, gop_size=2, intra_period=0,
+                        sao=True, deblocking=True, sign_hiding=True,
+                        cu_size=32, intra_rdo=True)
+    ps = ParamSets.from_config(cfg)
+    refs = [tuple(np.clip(np.roll(p, s, 1).astype(int)
+                          + rng.randint(-a, a + 1, p.shape), 0, 255)
+                  .astype(np.uint8) for p, a in ((y, 16), (u, 3), (v, 3)))
+            for s in (2, -2)]
+    out = {}
+    for dev in ("cpu", card):
+        before = dict(LAUNCHES)
+        d, *rec = TorchInterEncoder(ps, cfg, search=24, device=dev) \
+            .encode_frame_b((y, u, v), reference_from_numpy(refs[0], dev),
+                            reference_from_numpy(refs[1], dev), 700.0)
+        on_card = dev == card
+        assert LAUNCHES["coarse_sweep_sads"] == \
+            before["coarse_sweep_sads"] + 2 * on_card
+        assert LAUNCHES["coarse_sweep_sads_wide"] == \
+            before["coarse_sweep_sads_wide"] + on_card
+        out[str(dev)] = (d, [np.asarray(p) for p in rec])
+    (cd, crec), (gd, grec) = out["cpu"], out[str(card)]
+    for f in ("cu_depth", "tr_depth", "pred_mode", "mv", "mv_l1",
+              "inter_dir", "coef_y", "coef_u", "coef_v", "skip",
+              "inter_mode", "merge_idx", "root_cbf", "mvp_flag",
+              "mvp_flag_l1", "row_ssd_y"):
+        assert np.array_equal(getattr(cd, f), getattr(gd, f)), f
+    for a, b in zip(crec, grec):
+        assert np.array_equal(a, b)
+    _assert_sao_equal(cd.sao_params, gd.sao_params)
+    assert (cd.inter_dir == 3).any()
+
+
+def test_gpb_chain_on_card_matches_cpu(card):
+    """Generalized-B at CTU 32 with two references through api.Encoder
+    (I P B B B): the card's stream equals the CPU's byte for byte."""
+    from homerhevc_tpu_torch.api import Encoder
+    w, h = 128, 96
+    rng = np.random.RandomState(23)
+    y, u, v = _frame(rng, w, h)
+    frames = [(np.roll(y, 3 * t, 1), np.roll(u, t, 1), v) for t in range(5)]
+    cfg = EncoderConfig(width=w, height=h, qp=32, gop_size=1, intra_period=0,
+                        sao=True, deblocking=True, sign_hiding=True,
+                        cu_size=32, intra_rdo=True, num_ref_frames=2,
+                        reinit_gop_on_scene_change=False)
+    streams = {}
+    for dev in ("cpu", card):
+        enc = Encoder(cfg, device=dev)
+        efs = [e for f in frames for e in enc.encode(*f)] + \
+            list(enc.flush())
+        assert [e.frame_type for e in efs] == ["I", "P", "B", "B", "B"]
+        streams[str(dev)] = b"".join(e.annex_b() for e in efs)
+    assert streams["cpu"] == streams[str(card)]
 
 
 def _assert_sao_equal(p, q):

@@ -4,12 +4,17 @@
 serialized by homerhevc_tpu.hevc, hash to GOLDEN_DIGESTS; the port's CPU
 path hashes to the same. The cells with SAO (the tree frame and the IPPP
 tree streams) are pinned in test_torch_sao.py, where the JAX SAO is
-compiled at their shape anyway. On the card,
-chip_smoke.py holds the port's CUDA path to these constants."""
+compiled at their shape anyway. The B cells (B_DIGESTS: 128x96 IBP
+and generalized-B streams through the Encoder) were computed from the
+JAX package's Encoder by tests/torch_golden.py jax_b_stream_digests
+(minutes of JAX tracing and compiling, not a tier-1 test); the port's CPU
+path hashes to them here. On the card, chip_smoke.py holds the port's CUDA
+path to these constants."""
 
 import types
 
 import numpy as np
+import pytest
 import torch
 
 import chip_smoke
@@ -80,3 +85,17 @@ def test_chip_smoke_digests_are_the_golden_encoders():
 
 def test_port_cpu_path_gives_the_golden_digests():
     assert chip_smoke.port_digests("cpu") == chip_smoke.GOLDEN_DIGESTS
+
+
+@pytest.mark.parametrize("cell", list(chip_smoke.B_CELLS))
+def test_port_reproduces_the_b_stream_digests(cell):
+    from homerhevc_tpu_torch.api import Encoder
+    from homerhevc_tpu_torch.config import EncoderConfig as TorchConfig
+    kw, n = chip_smoke.B_CELLS[cell]
+    efs = chip_smoke.encode_all(
+        Encoder(TorchConfig(**chip_smoke.B_CFG, **kw), device="cpu"),
+        chip_smoke.bench_frames(n, w=128, h=96))
+    assert chip_smoke.digests(
+        b"".join(e.annex_b() for e in efs),
+        [e.recon[c] for e in efs for c in "yuv"]) == \
+        chip_smoke.B_DIGESTS[cell]

@@ -63,9 +63,9 @@ def test_torch_stream_matches_jax_and_decodes(gop, batch, sao, tmp_path):
     seen = []
     serialize = pipe._serialize_slice
 
-    def spy(desc, slice_type, nal_type, qp, sao_params=None):
+    def spy(desc, slice_type, nal_type, qp, sao_params=None, **refs):
         seen.append(sao_params)
-        return serialize(desc, slice_type, nal_type, qp, sao_params)
+        return serialize(desc, slice_type, nal_type, qp, sao_params, **refs)
     pipe._serialize_slice = spy
     got = _encode(enc, frames)
     assert [e.frame_type for e in got] == \

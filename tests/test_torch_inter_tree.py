@@ -1,11 +1,12 @@
 """The port's CU-tree P program (TorchInterEncoder at CTU 32 and 64)
 against the JAX TpuInterEncoder from the same reference picture, bit-exact
 in every field tests/test_tpu_inter.py compares and in the per-row luma
-SSD, in the FULL, FAST and UFAST modes; and the CTU-64 IPPP stream through
+SSD, in the FULL, FAST and UFAST modes; the CTU-64 IPPP stream through
 api.Encoder, whose P frames equal golden encode_inter_frame_tree from the
-same reference and which decodes (FFmpeg) to the port's recon. (The JAX
-CTU-64 stream is not a reference: its intra tree does not decode to its
-own recon, ROADMAP Queue 3.)"""
+same reference and which decodes (FFmpeg) to the port's recon; and the
+CTU-64 IBP stream (uni-L0 B frames) against the JAX Encoder with its
+golden I frame. (The JAX CTU-64 tree I frame is not a reference: it does
+not decode to its own recon, ROADMAP Queue 3.)"""
 
 import dataclasses
 import functools
@@ -13,8 +14,8 @@ import functools
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
+from homerhevc_tpu.api import Encoder as JaxEncoder
 from homerhevc_tpu.config import EncoderConfig as JaxConfig
 from homerhevc_tpu.engine.inter_encoder import TpuInterEncoder
 from homerhevc_tpu.golden.inter_frame import encode_inter_frame_tree
@@ -25,7 +26,8 @@ from homerhevc_tpu_torch.engine.inter_encoder import TorchInterEncoder
 from homerhevc_tpu_torch.hevc.headers import ParamSets
 from homerhevc_tpu_torch.state import reference_from_numpy
 from tests.conftest import decode_annexb
-from tests.torch_golden import P_FIELDS, assert_p_frames_equal, torch_p_frame
+from tests.torch_golden import (P_FIELDS, IntSums, assert_p_frames_equal,
+                                torch_p_frame)
 
 torch.set_num_threads(1)    # one intra-op thread per test worker
 
@@ -135,22 +137,6 @@ def test_tree_p_program_matches_jax(case):
         assert (full[0].cu_depth < depth).any()
 
 
-class _IntSums(TorchDispatchMode):
-    """The largest int32 sum seen, by the number of elements summed."""
-
-    def __init__(self):
-        super().__init__()
-        self.largest = {}
-
-    def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        if (func is torch.ops.aten.sum.dim_IntList
-                and (kwargs or {}).get("dtype") == torch.int32):
-            n = int(np.prod([args[0].shape[d] for d in args[1]]))
-            self.largest[n] = max(self.largest.get(n, 0), int(out.max()))
-        return out
-
-
 def test_tree_p_program_matches_jax_past_exact_float32_sums():
     """The port sums a block's SSD exactly and rounds it once; JAX sums
     it in float32, exact only below 2^24. Full-swing noise against its
@@ -167,7 +153,7 @@ def test_tree_p_program_matches_jax_past_exact_float32_sums():
     want = _jax_encoder(**kw).encode_frame(src, ref, avg_dist=1e9, qp=51)
     cfg = EncoderConfig(**kw)
     enc = TorchInterEncoder(ParamSets.from_config(cfg), cfg, device="cpu")
-    sums = _IntSums()
+    sums = IntSums()
     with sums:
         got = enc.encode_frame(src, reference_from_numpy(ref, "cpu"),
                                avg_dist=1e9, qp=51)
@@ -220,6 +206,49 @@ def test_ctu64_stream_p_frames_equal_golden_and_decode(tmp_path):
     assert len(dec) == 3
     for d, e in zip(dec, efs):
         assert np.array_equal(d, e.recon["y"])
+
+
+def test_ibp_ctu64_stream_matches_jax_and_decodes(tmp_path):
+    """IBP at CTU 64 (intra_rdo, FAST, no deblocking or SAO), 5 frames:
+    decode order I0 P2 B1 P4 B3, each B a non-reference slice of uni-L0
+    CUs from the anchor before it (the JAX package bi-predicts at CTU 32
+    only). The JAX Encoder codes its I frame on its golden path, which the
+    port's CTU-64 tree equals, and both run the "64-fast" P program above
+    (built once for the module; IBP's own search range is 24, a constant
+    of the program): identical Annex-B bytes, and an FFmpeg decode equal
+    to the port's recon in display order."""
+    w, h = 128, 64
+    p_kw = _tree_kw(w, h, 64, 32, deblocking=False, sao=False,
+                    performance_mode=PerformanceMode.FAST)
+    kw = dict(p_kw, gop_size=2, intra_rdo=True)
+    (_, u, v), (y, _, _) = _gradient_pair(8, w, h)
+    rng = np.random.RandomState(9)
+    frames = [(np.clip(np.roll(y, 2 * t, 1).astype(int)
+                       + rng.randint(-2, 3, y.shape), 0, 255)
+               .astype(np.uint8), u, v) for t in range(5)]
+    jax_enc = JaxEncoder(JaxConfig(**{**kw, "performance_mode":
+                                      int(kw["performance_mode"])}))
+    jax_enc._pipeline._tpu_tree_ok = lambda: False
+    jax_enc._pipeline._tpu_inter = _jax_encoder(**p_kw)
+    port = Encoder(EncoderConfig(**kw), device="cpu")
+    pipe = port._pipeline
+    assert pipe._inter_search_range() == 24
+    pipe._inter_enc = TorchInterEncoder(pipe.ps, pipe.cfg, device="cpu")
+
+    def encode(enc):
+        return [e for f in frames for e in enc.encode(*f)] + \
+            list(enc.flush())
+    want, got = encode(jax_enc), encode(port)
+    assert [e.frame_type for e in got] == ["I", "P", "B", "P", "B"]
+    assert [e.poc for e in got] == [0, 2, 1, 4, 3]
+    stream = b"".join(e.annex_b() for e in got)
+    assert stream == b"".join(e.annex_b() for e in want)
+    path = tmp_path / "ibp64.265"
+    path.write_bytes(stream)
+    dec = decode_annexb(path)
+    assert len(dec) == 5
+    for e in got:
+        assert np.array_equal(dec[e.poc], e.recon["y"]), e.poc
 
 
 def test_tree_p_program_reads_the_padded_geometry():

@@ -2,9 +2,11 @@
 package: the decision pass equals TpuIntraTreeEncoder.decide; the encode
 with deblocking equals the golden tree encode + golden deblock (the
 references tests/test_intra_tree.py holds the JAX tree to) at CTU 32 and
-64; the whole slice (tree + deblock + SAO through api.Encoder, all-intra
-and IPPP) gives the JAX Encoder's Annex-B bytes and decodes to the port's
-recon."""
+64; the whole slice (tree + deblock + SAO through api.Encoder, all-intra,
+IPPP, IBP and generalized-B) gives the JAX Encoder's Annex-B bytes and
+decodes to the port's recon. The streams share one JAX tree program and
+one JAX P / B program (the B program is also held to the port's _impl_b
+here, field by field)."""
 
 import numpy as np
 import pytest
@@ -12,17 +14,21 @@ import torch
 
 from homerhevc_tpu.api import Encoder as JaxEncoder
 from homerhevc_tpu.config import EncoderConfig as JaxConfig
+from homerhevc_tpu.engine.inter_encoder import TpuInterEncoder
 from homerhevc_tpu.engine.intra_tree_encoder import TpuIntraTreeEncoder
 from homerhevc_tpu.hevc.headers import ParamSets as JaxParamSets
 from homerhevc_tpu_torch.api import Encoder
 from homerhevc_tpu_torch.config import EncoderConfig
+from homerhevc_tpu_torch.engine.inter_encoder import TorchInterEncoder
 from homerhevc_tpu_torch.engine.intra_tree_encoder import \
     TorchIntraTreeEncoder
 from homerhevc_tpu_torch.hevc.headers import ParamSets
+from homerhevc_tpu_torch.state import reference_from_numpy
 from tests.conftest import decode_annexb
 from tests.test_intra_tree import _mixed_frame
-from tests.torch_golden import assert_p_frames_equal, golden_tree, \
-    torch_p_frame
+from tests.torch_golden import (B_FIELDS, P_FIELDS, IntSums,
+                                assert_p_frames_equal, golden_tree,
+                                interpret_sweep, spec_amvp, torch_p_frame)
 
 torch.set_num_threads(1)    # one intra-op thread per test worker
 
@@ -113,9 +119,29 @@ def jax_tree_encoder():
     return TpuIntraTreeEncoder(JaxParamSets.from_config(jcfg), jcfg)
 
 
-def _jax_encoder(kw, tree_encoder):
+# the inter streams' configuration: IPPP at the same shape
+_INTER_KW = dict(_STREAM_KW, gop_size=1, intra_period=0,
+                 reinit_gop_on_scene_change=False)
+
+
+@pytest.fixture(scope="module")
+def jax_inter_encoder():
+    """The JAX P program, and on first use its B program, at the stream
+    tests' shape with the IPPP search range (16), built once for the
+    IPPP, IBP and generalized-B streams and the B program test. It reads
+    the geometry, CTU, deblocking, SAO, sign hiding and QP of its config,
+    which these configurations share. The tests that reach its B program
+    run the coarse sweep in interpret mode (interpret_sweep): whichever
+    of them traces the B program first, it is the same program."""
+    jcfg = JaxConfig(**_INTER_KW)
+    return TpuInterEncoder(JaxParamSets.from_config(jcfg), jcfg)
+
+
+def _jax_encoder(kw, tree_encoder, inter_encoder=None):
     enc = JaxEncoder(JaxConfig(**kw))
     enc._pipeline._tpu_intra = tree_encoder
+    if inter_encoder is not None:
+        enc._pipeline._tpu_inter = inter_encoder
     return enc
 
 
@@ -157,14 +183,14 @@ def test_tree_sao_stream_matches_jax_and_decodes(tmp_path,
 
 
 def test_tree_ippp_stream_matches_jax_and_decodes(tmp_path,
-                                                  jax_tree_encoder):
+                                                  jax_tree_encoder,
+                                                  jax_inter_encoder):
     """BASELINE config 4's shape at a small size, IPPP: the tree I frame
     and two CTU-32 P frames with deblocking and SAO through both Encoders
     give identical Annex-B bytes, which decode to the port's recon; the
     port's P program equals the JAX Encoder's from the same reference."""
     w, h = 96, 64
-    kw = dict(_STREAM_KW, gop_size=1, intra_period=0,
-              reinit_gop_on_scene_change=False)
+    kw = _INTER_KW
     rng = np.random.RandomState(42)
     y, u, v = _mixed_frame(rng, w, h)
     frames = [(np.clip(np.roll(y, 2 * t, 1).astype(int)
@@ -175,7 +201,7 @@ def test_tree_ippp_stream_matches_jax_and_decodes(tmp_path,
     def encode(enc):
         return [e for f in frames for e in enc.encode(*f)] + \
             list(enc.flush())
-    jax_enc = _jax_encoder(kw, jax_tree_encoder)
+    jax_enc = _jax_encoder(kw, jax_tree_encoder, jax_inter_encoder)
     want = encode(jax_enc)
     got = encode(Encoder(EncoderConfig(**kw), device="cpu"))
     assert [e.frame_type for e in got] == ["I", "P", "P"]
@@ -190,9 +216,187 @@ def test_tree_ippp_stream_matches_jax_and_decodes(tmp_path,
     # the P program alone: the JAX Encoder's (compiled above) and the
     # port's, from the first frame's recon
     ref = tuple(want[0].recon[c] for c in "yuv")
-    jax_p = jax_enc._pipeline._get_tpu_inter().encode_frame(
-        frames[1], ref, 900.0)
+    jax_p = jax_inter_encoder.encode_frame(frames[1], ref, 900.0)
     torch_p = torch_p_frame(kw, frames[1], ref, 900.0)
     assert_p_frames_equal(jax_p, torch_p)
     assert (torch_p[0].cu_depth == 0).any(), "no CU32 chosen"
     assert (torch_p[0].sao_params.type_luma != 0).any()
+
+
+def _bi_inputs(seed=1):
+    """A source and two references, each the source moved by 2 px (one to
+    each side) with heavy noise and a third of it replaced by unrelated
+    noise (list 0's right third, list 1's left third): the noise makes
+    bi-prediction win in the middle, each list alone wins where the other
+    is unrelated, and CU32 and CU16 both occur."""
+    w, h = 96, 64
+    rng = np.random.RandomState(seed)
+    y, u, v = _mixed_frame(rng, w, h)
+
+    def ref(shift, junk):
+        p = np.roll(y, shift, 1).astype(int) + rng.randint(-20, 21, y.shape)
+        p[:, junk] = rng.randint(0, 256, (h, 32))
+        return (np.clip(p, 0, 255).astype(np.uint8),
+                np.roll(u, shift // 2, 1), np.roll(v, shift // 2, 1))
+    return (y, u, v), ref(2, slice(64, 96)), ref(-2, slice(0, 32))
+
+
+def _full_swing_inputs():
+    """Full-swing noise and its negative as both references (every
+    prediction 255 away from the source): at QP 51 with the zero-forcing
+    cap, a 32x32 CU's SSD passes 2^24."""
+    rng = np.random.RandomState(5)
+    ref = tuple((rng.rand(*s) > 0.5).astype(np.uint8) * 255
+                for s in ((64, 96), (32, 48), (32, 48)))
+    return tuple(255 - p for p in ref), ref, ref
+
+
+@pytest.mark.parametrize("case", ["mixed", "full-swing"])
+def test_b_program_matches_jax(case, jax_inter_encoder, monkeypatch):
+    """The bi-capable program (_impl_b) against the JAX TpuInterEncoder's
+    encode_frame_b at CTU 32 with deblocking and SAO: both lists' MVs,
+    the directions, tree, levels, recon, the per-row SSD, the SAO
+    parameters and the merge / AMVP syntax (the JAX syntax selection with
+    the spec's two-list AMVP list, spec_amvp). "mixed" codes uni-L0,
+    uni-L1 and bi CUs at CU16 and CU32; "full-swing" takes 32x32 sums past
+    2^24, where the port's exact SSD rounded once may part from JAX's
+    float32 sum, and every field still agrees."""
+    interpret_sweep(monkeypatch)
+    spec_amvp(monkeypatch)
+    kw = dict(_INTER_KW, gop_size=2)
+    cfg = EncoderConfig(**kw)
+    enc = TorchInterEncoder(ParamSets.from_config(cfg), cfg, device="cpu")
+    if case == "mixed":
+        src, r0, r1 = _bi_inputs()
+        args = {}
+    else:
+        src, r0, r1 = _full_swing_inputs()
+        args = dict(avg_dist=1e9, qp=51)
+    want = jax_inter_encoder.encode_frame_b(src, r0, r1, **args)
+    sums = IntSums()
+    with sums:
+        got = enc.encode_frame_b(src, reference_from_numpy(r0, "cpu"),
+                                 reference_from_numpy(r1, "cpu"), **args)
+    assert_p_frames_equal(want, got, P_FIELDS + B_FIELDS)
+    wp, gp = want[0].sao_params, got[0].sao_params
+    for f in vars(wp):
+        assert np.array_equal(getattr(wp, f), getattr(gp, f)), f
+    dirs, depth = got[0].inter_dir, got[0].cu_depth
+    if case == "mixed":
+        assert set(np.unique(dirs)) == {1, 2, 3}
+        assert set(np.unique(depth)) == {0, 1}
+        assert (gp.type_luma != 0).any()
+    else:
+        assert sums.largest[32 * 32] > 2 ** 24
+        assert (dirs == 3).any()
+
+
+def _stream_frames(n, seed, noise=3):
+    """n frames of the mixed frame panning right by 2 px a frame, with
+    noise of +-noise."""
+    rng = np.random.RandomState(seed)
+    y, u, v = _mixed_frame(rng, 96, 64)
+    return [(np.clip(np.roll(y, 2 * t, 1).astype(int)
+                     + rng.randint(-noise, noise + 1, y.shape), 0, 255)
+             .astype(np.uint8), np.roll(u, t, 1), np.roll(v, t, 1))
+            for t in range(n)]
+
+
+def _decodes_to_recon(efs, tmp_path):
+    """The 8x8 units where an FFmpeg decode of the frames' stream differs
+    from their recon, by display index (empty where it agrees)."""
+    path = tmp_path / "b.265"
+    path.write_bytes(b"".join(e.annex_b() for e in efs))
+    dec = decode_annexb(path)
+    assert len(dec) == len(efs)
+    return {e.poc: int(((dec[e.poc] != e.recon["y"]).reshape(
+        dec[e.poc].shape[0] // 8, 8, -1, 8).any(axis=(1, 3))).sum())
+        for e in efs if not np.array_equal(dec[e.poc], e.recon["y"])}
+
+
+def _b_stream(kw, frames, tmp_path, tree_encoder, inter_encoder):
+    """The stream of kw through both Encoders, the port's P / B programs
+    at the JAX one's search range (16), the JAX package with the spec's
+    two-list AMVP list (spec_amvp, applied by the caller); asserts
+    identical Annex-B bytes and an FFmpeg decode equal to the port's recon
+    (in display order). Returns the port's frames (decode order) and
+    FrameDescs."""
+    jax_enc = _jax_encoder(kw, tree_encoder, inter_encoder)
+    port = Encoder(EncoderConfig(**kw), device="cpu")
+    pipe = port._pipeline
+    pipe._inter_enc = TorchInterEncoder(pipe.ps, pipe.cfg,
+                                        search=inter_encoder.search,
+                                        device="cpu")
+    descs = []
+    emit = pipe._emit
+
+    def spy(desc, *a, **k):
+        descs.append(desc)
+        return emit(desc, *a, **k)
+    pipe._emit = spy
+
+    def encode(enc):
+        return [e for f in frames for e in enc.encode(*f)] + \
+            list(enc.flush())
+    want = encode(jax_enc)
+    got = encode(port)
+    assert b"".join(e.annex_b() for e in got) == \
+        b"".join(e.annex_b() for e in want)
+    assert _decodes_to_recon(got, tmp_path) == {}
+    return got, descs
+
+
+def test_ibp_stream_matches_jax_and_decodes(tmp_path, jax_tree_encoder,
+                                            jax_inter_encoder, monkeypatch):
+    """IBP at CTU 32 with intra_rdo, deblocking and SAO, 8 frames: decode
+    order I0 P2 B1 A4 B3 A6 B5 P7, the anchors from A4 on bi-predicted
+    from the two anchors before (l1_swap), the B frames from both anchors
+    around them, the last frame a trailing P. Both pipelines search +-24
+    by default in IBP; here both run the JAX P / B programs' range so
+    that the programs are built once for the module.
+
+    The JAX package's own stream of these frames does not decode to its
+    recon: A6 codes a bi CU16 at the left picture edge whose list-1 MV
+    difference is taken from a list of AMVP candidates a decoder does not
+    derive (the same-POC above candidate alone, where the spec adds the
+    first above neighbour's scaled MV), and A6, B5 and P7 differ from the
+    recon in 8x8 units of that CU and the next. The port codes the spec's
+    list: its stream equals the JAX package's with that one derivation
+    corrected (spec_amvp), and decodes to the port's recon."""
+    kw = dict(_INTER_KW, gop_size=2)
+    for enc in (Encoder(EncoderConfig(**kw), device="cpu"),
+                JaxEncoder(JaxConfig(**kw))):
+        assert enc._pipeline._inter_search_range() == 24
+    frames = _stream_frames(8, 43)
+    interpret_sweep(monkeypatch)
+    faulty = _jax_encoder(kw, jax_tree_encoder, jax_inter_encoder)
+    bad = _decodes_to_recon([e for f in frames for e in faulty.encode(*f)]
+                            + list(faulty.flush()), tmp_path)
+    assert set(bad) == {5, 6, 7}
+    spec_amvp(monkeypatch)
+    got, descs = _b_stream(kw, frames, tmp_path, jax_tree_encoder,
+                           jax_inter_encoder)
+    assert [e.frame_type for e in got] == ["I", "P", "B", "B", "B", "B",
+                                           "B", "P"]
+    assert [e.poc for e in got] == [0, 2, 1, 4, 3, 6, 5, 7]
+    dirs = np.concatenate([d.inter_dir.ravel() for d in descs
+                           if d.inter_dir is not None])
+    assert (dirs == 3).any() and (dirs != 3).any()
+
+
+def test_gpb_stream_matches_jax_and_decodes(tmp_path, jax_tree_encoder,
+                                            jax_inter_encoder, monkeypatch):
+    """Two references at CTU 32 (num_ref_frames 2, IPPP): every frame after
+    the second is a generalized-B slice bi-predicted from t-1 and t-2 (t-2
+    in list 1 by l1_swap), through the depth-2 P chain; against the JAX
+    package with the spec's two-list AMVP list (spec_amvp). The frames are
+    noisy enough that averaging the two references wins in every B
+    frame."""
+    interpret_sweep(monkeypatch)
+    spec_amvp(monkeypatch)
+    kw = dict(_INTER_KW, num_ref_frames=2)
+    got, descs = _b_stream(kw, _stream_frames(5, 44, noise=10), tmp_path,
+                           jax_tree_encoder, jax_inter_encoder)
+    assert [e.frame_type for e in got] == ["I", "P", "B", "B", "B"]
+    assert [e.poc for e in got] == [0, 1, 2, 3, 4]
+    assert all((d.inter_dir == 3).any() for d in descs[2:])

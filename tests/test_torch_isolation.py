@@ -1,11 +1,11 @@
 """The port stands alone: no module of homerhevc_tpu_torch and no line of
 chip_smoke.py imports jax or the JAX package; a 64x64 I + P encode, an
-intra CU-tree encode and a CTU-32 IPPP encode, all with SAO, run with both
-blocked; every configuration outside the port's slices raises
-NotImplementedError when the Encoder is built (there is no golden
-fallback), and the configurations the last slice brought encode on the CPU
-and decode (FFmpeg) to the port's recon; the Encoder defaults to the
-card."""
+intra CU-tree encode, a CTU-32 IPPP encode, an IBP encode and a
+generalized-B encode, all with SAO, run with both blocked; every
+configuration outside the port's slices raises NotImplementedError when
+the Encoder is built (there is no golden fallback), and the
+configurations the last slices brought encode on the CPU and decode
+(FFmpeg) to the port's recon; the Encoder defaults to the card."""
 
 import ast
 import inspect
@@ -82,7 +82,11 @@ def test_port_encodes_with_jax_and_the_jax_package_blocked():
         "                 (dict(cu_size=32, gop_size=0, intra_rdo=True),\n"
         "                  ['I', 'I']),\n"
         "                 (dict(cu_size=32, gop_size=1, intra_rdo=True),\n"
-        "                  ['I', 'P'])):\n"
+        "                  ['I', 'P']),\n"
+        "                 (dict(cu_size=32, gop_size=2, intra_rdo=True),\n"
+        "                  ['I', 'P']),\n"
+        "                 (dict(cu_size=32, gop_size=1, intra_rdo=True,\n"
+        "                       gpb=True), ['I', 'P'])):\n"
         "    cfg = EncoderConfig(width=64, height=64, qp=32, sao=True, **kw)\n"
         "    enc = Encoder(cfg, device='cpu')\n"
         "    efs = list(enc.encode(y, c, c))\n"
@@ -107,26 +111,58 @@ _BASE = dict(width=64, height=64, cu_size=16, gop_size=1, qp=32, sao=False)
 _TREE = dict(gop_size=0, cu_size=32, intra_rdo=True)
 
 
+def _case(changes, item, index):
+    """A refusal case under the id it had when the list also held the B,
+    generalized-B and two-reference cases (now in
+    test_lifted_config_encodes), so that each keeps its name."""
+    return pytest.param(changes, item, id=f"changes{index}-{item}")
+
+
 @pytest.mark.parametrize("changes,item", [
     # IPPP at CU32 / CU64 without intra_rdo: its I frames have no device
     # program
-    (dict(cu_size=32), "item 7"),
-    (dict(num_b=1), "item 5"),
-    (dict(gpb=True), "item 5"),
-    (dict(cu_size=64), "item 7"),
-    (dict(intra_rdo=True, cu_size=32, aq_strength=1.0), "item 4"),
-    (dict(aq_strength=1.0), "item 4"),
-    (dict(rc_ctu=True), "item 4"),
-    (dict(intra_rdo=True, cu_size=64, num_b=1), "item 5"),
-    (dict(num_ref_frames=2), "item 5"),
-    (dict(num_devices=2), "item 6"),
-    (dict(_TREE, rd_mode=RDMode.RD_FULL), "item 7"),
-    (dict(_TREE, aq_strength=1.0), "item 4"),
-    (dict(gop_size=0, intra_rdo=True), "item 7"),
-    (dict(gop_size=0, cu_size=64), "item 7")])
+    _case(dict(cu_size=32), "item 7", 0),
+    _case(dict(cu_size=64), "item 7", 3),
+    _case(dict(intra_rdo=True, cu_size=32, aq_strength=1.0), "item 4", 4),
+    _case(dict(aq_strength=1.0), "item 4", 5),
+    _case(dict(rc_ctu=True), "item 4", 6),
+    _case(dict(num_devices=2), "item 6", 9),
+    _case(dict(_TREE, rd_mode=RDMode.RD_FULL), "item 7", 10),
+    _case(dict(_TREE, aq_strength=1.0), "item 4", 11),
+    _case(dict(gop_size=0, intra_rdo=True), "item 7", 12),
+    _case(dict(gop_size=0, cu_size=64), "item 7", 13),
+    # more than two references: the JAX package's golden path only
+    _case(dict(num_ref_frames=3), "item 7", 14)])
 def test_unported_config_raises(changes, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         Encoder(EncoderConfig(**{**_BASE, **changes}), device="cpu")
+
+
+@pytest.mark.parametrize("changes,types", [
+    pytest.param(dict(num_b=1), ["I", "P", "B"], id="num_b1"),
+    pytest.param(dict(gpb=True), ["I", "P", "P"], id="gpb"),
+    pytest.param(dict(num_ref_frames=2), ["I", "P", "P"],
+                 id="num_ref_frames2"),
+    pytest.param(dict(intra_rdo=True, cu_size=64, num_b=1),
+                 ["I", "P", "B"], id="cu64-num_b1")])
+def test_lifted_config_encodes(changes, types):
+    """Configurations that raised before B frames and generalized-B were
+    ported encode on the CPU, every frame coming out (decode order): IBP
+    at CU16 and at CTU 64 (uni-L0 B frames), and gpb / two references at
+    CU16, where the JAX package codes plain P frames (it bi-predicts at
+    CTU 32 only)."""
+    yy, xx = np.mgrid[0:64, 0:64]
+    y = (100 + 60 * np.sin(xx / 5.0) + yy).astype(np.uint8)
+    c = np.full((32, 32), 128, np.uint8)
+    enc = Encoder(EncoderConfig(**{**_BASE, "deblocking": True, **changes}),
+                  device="cpu")
+    efs = [e for t in range(3) for e in enc.encode(np.roll(y, 3 * t, 1),
+                                                   c, c)]
+    efs += list(enc.flush())
+    assert [e.frame_type for e in efs] == types
+    assert sorted(e.poc for e in efs) == [0, 1, 2]
+    assert all(e.recon["y"].shape == (64, 64) and len(e.annex_b()) > 0
+               for e in efs)
 
 
 _P = PerformanceMode

@@ -3,7 +3,12 @@ golden tree decision + closed-loop encode, homerhevc_tpu.golden.intra_tree,
 with the golden deblock: the references tests/test_intra_tree.py holds the
 JAX tree to), and the P-frame comparison against the JAX P program."""
 
+import functools
+
 import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from homerhevc_tpu.golden import deblock as gdb
 from homerhevc_tpu.golden.intra_tree import (decide_intra_tree,
@@ -17,6 +22,8 @@ from homerhevc_tpu_torch.state import reference_from_numpy
 P_FIELDS = ("cu_depth", "tr_depth", "pred_mode", "mv", "coef_y", "coef_u",
             "coef_v", "skip", "inter_mode", "merge_idx", "root_cbf",
             "mvp_flag")
+# and those a bi-capable frame adds (tests/test_unibi.py)
+B_FIELDS = ("mv_l1", "inter_dir", "mvp_flag_l1")
 
 
 def golden_tree(ps, y, u, v, qp):
@@ -43,13 +50,83 @@ def torch_p_frame(kw, src, ref, avg_dist=1000.0):
     return enc.encode_frame(src, reference_from_numpy(ref, "cpu"), avg_dist)
 
 
-def assert_p_frames_equal(want, got):
-    """(desc, y, u, v) of two P programs: every P_FIELDS field, the recon
-    planes and the per-row luma SSD."""
+def assert_p_frames_equal(want, got, fields=P_FIELDS):
+    """(desc, y, u, v) of two P programs: every field of `fields`, the
+    recon planes and the per-row luma SSD."""
     (wd, *wrec), (gd, *grec) = want, got
-    for f in P_FIELDS:
+    for f in fields:
         assert np.array_equal(getattr(wd, f), getattr(gd, f)), f
     for a, b in zip(wrec, grec):
         assert np.array_equal(np.asarray(a, np.int32),
                               np.asarray(b, np.int32)), "recon"
     assert np.array_equal(wd.row_ssd_y, gd.row_ssd_y)
+
+
+def interpret_sweep(monkeypatch):
+    """Run the JAX package's coarse sweep as its Pallas kernel in interpret
+    mode, as tests/test_pallas.py runs it on the CPU (bit-identical to the
+    unrolled XLA sweep its probe picks here): a program with three
+    searches compiles in about half the time."""
+    import homerhevc_tpu.ops.pallas.me_sad as pallas_me_sad
+    monkeypatch.setattr(pallas_me_sad, "pallas_ok", lambda: True)
+    monkeypatch.setattr(pallas_me_sad, "coarse_sweep_sads",
+                        functools.partial(pallas_me_sad.coarse_sweep_sads,
+                                          interpret=True))
+
+
+def spec_amvp(monkeypatch):
+    """Give the JAX package the spec's two-list AMVP candidate list (the
+    port's amvp_candidates_2) in its syntax selection and its Python
+    serializer, and turn its native serializer (which derives the old
+    list) off. The JAX package keeps only the same-POC B candidate where
+    no left neighbour exists, a list a decoder does not derive (ROADMAP
+    Queue 3); everything else of the reference stays as it is."""
+    import homerhevc_tpu.hevc.inter as jax_inter
+    import homerhevc_tpu.native as jax_native
+    from homerhevc_tpu_torch.hevc.inter import amvp_candidates_2
+    monkeypatch.setattr(jax_inter, "amvp_candidates_2", amvp_candidates_2)
+    monkeypatch.setattr(jax_native, "encode_slice_native",
+                        lambda *a, **k: None)
+
+
+def jax_b_stream_digests():
+    """The B cells of chip_smoke.py (B_CELLS) through the JAX package's
+    Encoder on the CPU, its coarse sweep in interpret mode
+    (interpret_sweep); at CTU 64 the I frame comes from its golden path
+    (decide + encode, golden deblock), which the port's CTU-64 tree
+    equals and the JAX tree program does not (ROADMAP Queue 3). No CU of these streams
+    reaches the JAX package's two-list AMVP fault (spec_amvp), so they
+    need no correction. Takes minutes (the JAX tree program's trace, the
+    P and B programs' compiles):
+
+        JAX_PLATFORMS=cpu python -c "from tests.torch_golden import \\
+            jax_b_stream_digests as d; print(d())"
+    """
+    import chip_smoke
+    from homerhevc_tpu.api import Encoder
+    from homerhevc_tpu.config import EncoderConfig as JaxConfig
+
+    def encode(kw, frames):
+        enc = Encoder(JaxConfig(**kw))
+        if kw["cu_size"] == 64:
+            enc._pipeline._tpu_tree_ok = lambda: False
+        return chip_smoke.encode_all(enc, frames)
+    with pytest.MonkeyPatch.context() as mp:
+        interpret_sweep(mp)
+        return chip_smoke.b_stream_digests(encode)
+
+
+class IntSums(TorchDispatchMode):
+    """The largest int32 sum seen, by the number of elements summed."""
+
+    def __init__(self):
+        super().__init__()
+        self.largest = {}
+
+    def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if (func is torch.ops.aten.sum.dim_IntList
+                and (kwargs or {}).get("dtype") == torch.int32):
+            n = int(np.prod([args[0].shape[d] for d in args[1]]))
+            self.largest[n] = max(self.largest.get(n, 0), int(out.max()))
+        return out
