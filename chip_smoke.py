@@ -23,7 +23,8 @@ passed):
      tests/test_torch_digests.py and tests/test_torch_sao.py), and of the
      JAX package's Encoder at 128x96 (IBP at CTU 32 with bi anchors, IBP
      at CTU 64 with uni-L0 B frames, generalized-B at CTU 32 with two
-     references);
+     references) and of its AQ streams (96x64 all-intra AQ, 3 frames in
+     flight; 128x64 IPPP AQ + row-RC under CBR; tests/test_torch_aq.py);
   4. the main paths through homerhevc_tpu_torch.api.Encoder, each with the
      kernel launch counts set to 0 just before and read just after it:
      720p IPPP CU16 (1 I + 15 P; its first two frames re-encoded on the
@@ -39,7 +40,14 @@ passed):
      1080p IBP at CTU 32 (I0 P2 B1 A4 B3 A6 B5 A8 B7, every frame after P2
      bi-capable, the sweep's 8-bit entry point once per P and twice per
      bi frame, its wide one once per bi frame, some 8x8 units coded bi,
-     I0 P2 B1 A4 equal on the CPU) (slice 4); neither jax nor
+     I0 P2 B1 A4 equal on the CPU) (slice 4); path E, per-CTB QP maps
+     and rate control (slice 5): E0 BASELINE config 3 (720p IPPP CU16,
+     quarter-pel, CBR 1250 kbps + VBV, deblocking, SAO; 1 I + 15 P), E1
+     the same with AQ and row-RC and deblocking off (every P frame inline
+     with its map), each with the sweep launched once per P frame, its
+     I + 2 P equal on the CPU and one P frame profiled; E2 720p all-intra
+     CU16 with AQ (bench.py's config, 4 in flight); E3 one 1088-line
+     CTU-64 P frame with a map, card equal to CPU; neither jax nor
      homerhevc_tpu may be imported;
   5. where the time goes: one I and one P frame of slice 1, a P frame
      with SAO and two CTU-64 P frames of path C under torch.profiler, and
@@ -75,6 +83,8 @@ N_SAO = 8                     # path B: 720p IPPP CU16 + SAO, 1 I + 7 P
 N_PATH_C = 8                  # path C: 1080p IPPP tree + SAO, 1 I + 7 P
 N_PATH_D = 9                  # path D: 1080p IBP CTU 32, I0 P2 B1 A4 ... B7
 N_PATH_D_CPU = 4              # I0 P2 B1 A4 re-encoded on the CPU
+N_PATH_E = 16                 # path E0 / E1: 720p IPPP CBR, 1 I + 15 P
+N_PATH_E_CPU = 3              # E0's and E1's I + 2 P re-encoded on the CPU
 PROFILE_STEPS = 8             # wavefront steps under torch.profiler
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64       # Hopper SM: 64 INT32 lanes per clock
@@ -116,6 +126,23 @@ B_CELLS = {
     "GPB CTU 32 two refs": (dict(cu_size=32, gop_size=1, num_ref_frames=2,
                                  sao=True), 4),
 }
+# the AQ cells: streams of the bench clip with a flat band over the top
+# quarter of every frame (AQ deltas), through the Encoder at CU16 with
+# deblocking off, sign hiding, AQ strength 2 and QP 30: all-intra at 96x64,
+# 3 frames in flight (6 frames), and IPPP with row-RC under CBR at 300 kbps
+# (5 frames); digests of the JAX package's Encoder on the CPU, which
+# tests/test_torch_aq.py computes and holds to AQ_DIGESTS
+AQ_CFG = dict(qp=30, cu_size=16, sao=False, deblocking=False,
+              sign_hiding=True, aq_strength=2.0,
+              reinit_gop_on_scene_change=False)
+AQ_CELLS = {
+    "all-intra AQ 96x64": (dict(width=96, height=64, gop_size=0,
+                                num_frames_in_flight=3), 6),
+    "IPPP AQ + row-RC CBR 128x64": (dict(width=128, height=64, gop_size=1,
+                                         intra_period=0, rc_ctu=True,
+                                         bitrate_mode=1,      # CBR
+                                         bitrate_kbps=300), 5),
+}
 GOLDEN_DIGESTS = {
     "I deblock=0": (
         "75cc9191de8a647a6a5b50d8b8a68a91c032bcd80b960d6c7e38399cab84f7fe",
@@ -152,6 +179,14 @@ B_DIGESTS = {
     "GPB CTU 32 two refs": (
         "3bcc781869b48f3c3e092b2da0b41669c92916c8035f818766bd7f1345788510",
         "cd9247364373e9cd63865cb5a429a5c874e1865b250bd501592ad4e754ed84b1"),
+}
+AQ_DIGESTS = {
+    "all-intra AQ 96x64": (
+        "cec6490d20923aab22dfa99a819b46980bd51151e57941c1aa4e62a046adf388",
+        "e3cdb9fe45b5bf66313d34bb1e9f821ad860642ca4615b2657e34361bdccebfd"),
+    "IPPP AQ + row-RC CBR 128x64": (
+        "5bd7fc66d0c1e4140f9663d8d845e73d12484758f775c85dfe4671cf3a8e25ba",
+        "0bd0bb04b5d52cb470ac2b24efb2f3424b7f81f4cf2396ef390aa650d50f1530"),
 }
 
 
@@ -538,6 +573,26 @@ def port_digests(device):
     return out
 
 
+def aq_frames(n, w, h):
+    """The AQ cells' frames: the bench clip at w x h with a flat band over
+    the top quarter of every frame."""
+    frames = bench_frames(n, w=w, h=h)
+    for y, _, _ in frames:
+        y[:h // 4] = 90
+    return frames
+
+
+def aq_stream_digests(encode):
+    """Digests of the AQ cells' streams, encode as in b_stream_digests."""
+    out = {}
+    for name, (cell, n) in AQ_CELLS.items():
+        kw = {**AQ_CFG, **cell}
+        efs = encode(kw, aq_frames(n, kw["width"], kw["height"]))
+        out[name] = digests(b"".join(e.annex_b() for e in efs),
+                            [e.recon[c] for e in efs for c in "yuv"])
+    return out
+
+
 def b_stream_digests(encode):
     """Digests of the B cells' streams: encode(kw, frames) returns the
     EncodedFrames of the configuration kw (keyword arguments of an
@@ -553,17 +608,20 @@ def b_stream_digests(encode):
 def phase_digests():
     from homerhevc_tpu_torch.api import Encoder
     from homerhevc_tpu_torch.config import EncoderConfig
+    def encode(kw, frames):
+        return encode_all(Encoder(EncoderConfig(**kw), device=DEV), frames)
     got = port_digests(DEV)
-    got.update(b_stream_digests(lambda kw, frames: encode_all(
-        Encoder(EncoderConfig(**kw), device=DEV), frames)))
-    for k, want in {**GOLDEN_DIGESTS, **B_DIGESTS}.items():
+    got.update(b_stream_digests(encode))
+    got.update(aq_stream_digests(encode))
+    for k, want in {**GOLDEN_DIGESTS, **B_DIGESTS, **AQ_DIGESTS}.items():
         check(got[k] == want, f"{k}: port {got[k]} != golden {want}")
     log("[parity] 128x64 on the card: I frame (deblock off/on), P frame, "
         "intra tree (CU32 / CU64 deblock, CU32 deblock+SAO) and IPPP tree "
         "streams (I + 2 P, CU32 / CU64 deblock+SAO) == the JAX golden "
         "encoder's SHA-256 digests (Annex-B bytes and recon planes); "
         "128x96 through api.Encoder: IBP CTU 32 with bi anchors, IBP CTU "
-        "64 with uni-L0 B, generalized-B CTU 32 with two references == "
+        "64 with uni-L0 B, generalized-B CTU 32 with two references; "
+        "96x64 all-intra AQ and 128x64 IPPP AQ + row-RC under CBR == "
         "the JAX Encoder's digests")
 
 
@@ -575,7 +633,9 @@ def encode_all(enc, frames):
     return efs
 
 
-def check_frames(efs, frames, types_):
+def check_frames(efs, frames, types_, floor=25.0):
+    """The frame types, each recon's shape and finite values, and a luma
+    PSNR floor (25 dB at QP 32 on the bench clip); the mean PSNR."""
     from homerhevc_tpu_torch.utils.metrics import psnr
     check([e.frame_type for e in efs] == types_, [e.frame_type for e in efs])
     ps = []
@@ -585,8 +645,22 @@ def check_frames(efs, frames, types_):
         check(r["u"].shape == u.shape)
         check(np.isfinite(r["y"].astype(np.float64)).all())
         ps.append(psnr(r["y"], y))
-    check(min(ps) > 25.0, ps)  # sanity floor at qp32 on this clip
+    check(min(ps) > floor, ps)
     return float(np.mean(ps))
+
+
+def spy_emit(pipe):
+    """Record each frame's FrameDesc and its emission time on pipe."""
+    descs, emitted = [], []
+    emit = pipe._emit
+
+    def spy(desc, *a, **k):
+        descs.append(desc)
+        ef = emit(desc, *a, **k)
+        emitted.append(time.perf_counter())
+        return ef
+    pipe._emit = spy
+    return descs, emitted
 
 
 def phase_main_path(frames):
@@ -777,15 +851,7 @@ def phase_path_c(frames):
         torch.cuda.synchronize()
         enc = Encoder(p_frame_config(W_TREE, H_TREE, cu, perf))
         pipe = enc._pipeline
-        descs, emitted = [], []
-        emit = pipe._emit
-
-        def spy(desc, *a, **k):
-            descs.append(desc)
-            ef = emit(desc, *a, **k)
-            emitted.append(time.perf_counter())
-            return ef
-        pipe._emit = spy
+        descs, emitted = spy_emit(pipe)
         PROFILER.reset()
         reset_launches()
         t = time.perf_counter()
@@ -873,15 +939,7 @@ def phase_path_d(frames):
     torch.cuda.synchronize()
     enc = Encoder(ibp_config(W_TREE, H_TREE))
     pipe = enc._pipeline
-    descs, emitted = [], []
-    emit = pipe._emit
-
-    def spy(desc, *a, **k):
-        descs.append(desc)
-        ef = emit(desc, *a, **k)
-        emitted.append(time.perf_counter())
-        return ef
-    pipe._emit = spy
+    descs, emitted = spy_emit(pipe)
     PROFILER.reset()
     reset_launches()
     t = time.perf_counter()
@@ -935,6 +993,184 @@ def phase_path_d(frames):
         f"{time.perf_counter() - t:.1f} s): Annex-B bytes identical")
     return (launches["coarse_sweep_sads"],
             launches["coarse_sweep_sads_wide"])
+
+
+def config3(**kw):
+    """Path E: BASELINE config 3, 720p IPPP CU16 with quarter-pel motion
+    estimation, CBR at 1250 kbps with a VBV of 1 s, deblocking, SAO and
+    sign hiding at 25 fps (kw: the changes of E1)."""
+    from homerhevc_tpu_torch.config import BitrateMode, EncoderConfig
+    return EncoderConfig(**{**dict(
+        width=W, height=H, cu_size=16, gop_size=1, qp=32,
+        bitrate_mode=BitrateMode.CBR, bitrate_kbps=1250, vbv_size=1.0,
+        deblocking=True, sao=True, sign_hiding=True), **kw})
+
+
+def qp_off_share(descs, efs):
+    """The share of CTBs (equally, of 8x8 units) whose QP differs from
+    their slice's QP, over frames that carry a per-CTB QP map."""
+    shares = [float(np.mean(d.qp_map != e.avg_qp)) for d, e in zip(descs, efs)
+              if d.qp_map is not None]
+    return float(np.mean(shares)) if shares else 0.0
+
+
+def phase_path_e(frames, frames_1080):
+    """Path E on the card: per-CTB QP maps and rate control. E0 is
+    BASELINE config 3 (720p IPPP CU16, quarter-pel, CBR 1250 kbps, VBV
+    1 s, deblocking, SAO), 1 I + 15 P on the depth-2 P chain; E1 the same
+    with AQ (strength 2) and row-RC, deblocking off, every P frame inline
+    with its map; each after a 3-frame warm-up of its configuration, its
+    I and first two P frames re-encoded on the CPU (identical bytes), and
+    one P frame of each under torch.profiler beside a P frame without a
+    map and without deblocking. E2 is bench.py's all-intra CU16 with AQ,
+    4 frames in flight. E3 one 1088-line CTU-64 P frame with a map
+    through the P program on the card and on the CPU (every field equal).
+    Returns the sweep's launches."""
+    from homerhevc_tpu_torch.api import Encoder
+    from homerhevc_tpu_torch.config import EncoderConfig
+    from homerhevc_tpu_torch.device import LAUNCHES, reset_launches
+    from homerhevc_tpu_torch.engine.inter_encoder import TorchInterEncoder
+    from homerhevc_tpu_torch.engine.rate_control import aq_qp_map
+    from homerhevc_tpu_torch.hevc.headers import ParamSets
+    from homerhevc_tpu_torch.state import reference_from_numpy
+    from homerhevc_tpu_torch.tools.p_frame_ops import count_p_frame
+    from homerhevc_tpu_torch.utils.profiler import PROFILER
+    t_e = time.perf_counter()
+    sweeps = 0
+    n_p = N_PATH_E - 1
+    for label, cfg in (("E0 config 3", config3()),
+                       ("E1 config 3 + AQ + row-RC", config3(
+                           aq_strength=2.0, rc_ctu=True, deblocking=False))):
+        encode_all(Encoder(cfg), frames[:3])                 # warm-up
+        torch.cuda.synchronize()
+        enc = Encoder(cfg)
+        pipe = enc._pipeline
+        descs, emitted = spy_emit(pipe)
+        PROFILER.reset()
+        reset_launches()
+        t = time.perf_counter()
+        efs = encode_all(enc, frames[:N_PATH_E])
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches = dict(LAUNCHES)
+        check(launches["coarse_sweep_sads"] == n_p, launches)
+        sweeps += launches["coarse_sweep_sads"]
+        # CBR drives the QP up to the budget: a lower sanity floor
+        mean_psnr = check_frames(efs, frames, ["I"] + ["P"] * n_p, 18.0)
+        bits = [e.bits for e in efs]
+        kbps = float(np.sum(bits)) / N_PATH_E * cfg.frame_rate / 1e3
+        kbps_p = float(np.mean(bits[1:])) * cfg.frame_rate / 1e3
+        share = qp_off_share(descs, efs)
+        if cfg.aq_strength > 0:
+            check(share > 0, "no CTB coded away from its slice QP")
+        qps = [e.avg_qp for e in efs]
+        log(f"[path E] {label}: {N_PATH_E} frames (1 I + {n_p} P) in "
+            f"{t_end - t:.3f} s = {N_PATH_E / (t_end - t):.3f} fps; I frame "
+            f"{emitted[0] - t:.3f} s, P frames "
+            f"{(t_end - emitted[0]) / n_p * 1e3:.1f} ms each; "
+            f"{kbps:.1f} kbps over the clip against {cfg.bitrate_kbps} "
+            f"({100 * kbps / cfg.bitrate_kbps:.1f}%), the P frames "
+            f"{kbps_p:.1f} kbps; slice QPs {qps}; bits/frame "
+            f"{np.mean(bits):.0f} (I {bits[0]}); luma PSNR {mean_psnr:.2f} "
+            f"dB; CTBs away from their slice QP {100 * share:.1f}%; coarse "
+            f"sweep launches {launches['coarse_sweep_sads']}")
+        log(f"[path E] {label} host scopes:\n" + PROFILER.report())
+        t = time.perf_counter()
+        cpu = first_frames(Encoder(cfg, device="cpu"), frames, N_PATH_E_CPU)
+        check(b"".join(e.annex_b() for e in cpu)
+              == b"".join(e.annex_b() for e in efs[:N_PATH_E_CPU]),
+              f"CUDA {label} stream != CPU stream")
+        log(f"[path E] {label}: I + 2 P re-encoded on the CPU (plain path, "
+            f"{time.perf_counter() - t:.1f} s): Annex-B bytes identical")
+    # one P frame with and without a map under torch.profiler: E0's
+    # (deblocking on, no map), E1's (a map, deblocking off) and the like
+    # of E1's without a map
+    src, ref = frames[2], reference_from_numpy(frames[1], DEV)
+    qp_map = aq_qp_map(src[0], 16, 32, 2.0)
+    for label, cfg, m in (("E0 P frame", config3(), None),
+                          ("E1 P frame with a map",
+                           config3(deblocking=False), qp_map),
+                          ("P frame without deblocking or map",
+                           config3(deblocking=False), None)):
+        pe = TorchInterEncoder(ParamSets.from_config(cfg), cfg, device=DEV)
+        pe.encode_frame(src, ref, qp_map=m)                 # warm-up
+        ops, compute = count_p_frame(pe, src, ref, m)
+        n_k, busy, wall = profile_window(
+            f"path E {label} (dispatch)",
+            lambda: pe.dispatch(src, ref, qp_map=m))
+        log(f"[path E] {label}: {ops} aten ops, {compute} not views; "
+            f"{n_k} kernels, device busy {busy:.2f} ms")
+    # E2: bench.py's configuration with AQ
+    cfg2 = EncoderConfig(width=W, height=H, cu_size=16, gop_size=0, qp=32,
+                         sign_hiding=True, deblocking=False, sao=False,
+                         aq_strength=2.0, num_frames_in_flight=F_INTRA)
+    encode_all(Encoder(cfg2), frames[:F_INTRA])               # warm-up
+    enc2 = Encoder(cfg2)
+    descs, _ = spy_emit(enc2._pipeline)
+    reset_launches()
+    t = time.perf_counter()
+    efs2 = encode_all(enc2, frames[:N_INTRA])
+    torch.cuda.synchronize()
+    dt2 = time.perf_counter() - t
+    check(all(v == 0 for v in LAUNCHES.values()), dict(LAUNCHES))
+    mean2 = check_frames(efs2, frames, ["I"] * N_INTRA)
+    share2 = qp_off_share(descs, efs2)
+    check(share2 > 0, "no CTB coded away from its slice QP")
+    log(f"[path E] E2 720p all-intra CU16 AQ qp32 ({F_INTRA} frames in "
+        f"flight): {N_INTRA} frames in {dt2:.3f} s = {N_INTRA / dt2:.3f} "
+        f"fps; bits/frame {np.mean([e.bits for e in efs2]):.0f}; luma PSNR "
+        f"{mean2:.2f} dB; CTBs away from their slice QP "
+        f"{100 * share2:.1f}%")
+    # one I frame of E2's encoder with and without a map under
+    # torch.profiler (phase 5's flat I frame has deblocking on)
+    ie = enc2._pipeline._intra()
+    y, u, v = frames[0]
+    for label, maps in (("with a map", [aq_qp_map(y, 16, 32, 2.0)]),
+                        ("without a map", None)):
+        n_k, busy, wall = profile_window(
+            f"path E E2 I frame {label} (dispatch)",
+            lambda: ie.dispatch_frames([y], [u], [v], qp_maps=maps))
+        log(f"[path E] E2 I frame {label}: {n_k} kernels, device busy "
+            f"{busy:.2f} ms")
+    # E3: one CTU-64 P frame with a map, card against CPU (1080 lines
+    # code as 1088, padded as the pipeline pads)
+    from homerhevc_tpu_torch.tools.p_frame_ops import p_frame_config
+    cfg3 = p_frame_config(W_TREE, H_TREE, 64, deblocking=False)
+    pipe3 = Encoder(cfg3, device="cpu")._pipeline
+    pad = [pipe3._pad_frame(*f) for f in frames_1080]
+    cfg3 = pipe3.cfg
+    qp_map = aq_qp_map(pad[1][0], 64, 32, 2.0)
+    out = {}
+    for dev in (DEV, "cpu"):
+        pe = TorchInterEncoder(ParamSets.from_config(cfg3), cfg3, device=dev)
+        ref = reference_from_numpy(pad[0], dev)
+        if dev == DEV:
+            pe.encode_frame(pad[1], ref, qp_map=qp_map)      # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+        t = time.perf_counter()
+        desc, *rec = pe.encode_frame(pad[1], ref, qp_map=qp_map)
+        out[dev] = (desc, [np.asarray(p) for p in rec],
+                    time.perf_counter() - t)
+        if dev == DEV:
+            check(LAUNCHES["coarse_sweep_sads"] == 1, dict(LAUNCHES))
+            sweeps += 1
+    (cd, crec, ct), (hd, hrec, ht) = out[DEV], out["cpu"]
+    for f in ("cu_depth", "tr_depth", "pred_mode", "mv", "coef_y", "coef_u",
+              "coef_v", "skip", "inter_mode", "merge_idx", "root_cbf",
+              "mvp_flag", "qp_map", "row_ssd_y"):
+        check(np.array_equal(getattr(cd, f), getattr(hd, f)),
+              f"E3: {f} differs between the card and the CPU")
+    check(all(np.array_equal(a, b) for a, b in zip(crec, hrec)),
+          "E3: recon differs between the card and the CPU")
+    depths = sorted(int(d) for d in np.unique(cd.cu_depth))
+    log(f"[path E] E3 {cfg3.height}-line CTU-64 P frame with a per-CTB "
+        f"map (QPs {int(qp_map.min())}..{int(qp_map.max())}, "
+        f"{100 * float(np.mean(qp_map != 32)):.1f}% of CTBs away from 32): "
+        f"card {ct * 1e3:.1f} ms, CPU {ht:.1f} s; CU depths {depths}; every "
+        f"field, the recon and the row SSDs equal")
+    log(f"[path E] E0-E3 took {time.perf_counter() - t_e:.1f} s")
+    return sweeps
 
 
 def phase_tree_stages(frame):
@@ -1075,6 +1311,7 @@ def main():
     sao_launches = phase_sao_ippp(frames)
     path_c_launches = phase_path_c(tree_frames[:N_PATH_C])
     path_d_launches, wide_launches = phase_path_d(tree_frames)
+    path_e_launches = phase_path_e(frames, tree_frames[:2])
     phase_profile(frames)
     phase_tree_stages(tree_frames[0])
     for name in ("jax", "homerhevc_tpu"):
@@ -1084,7 +1321,7 @@ def main():
     for name, row, n in (
             ("coarse_sweep_sads", "720p R=16",
              launches["coarse_sweep_sads"] + sao_launches + path_c_launches
-             + path_d_launches),
+             + path_d_launches + path_e_launches),
             ("coarse_sweep_sads_wide", "wide 1088 lines R=24",
              wide_launches)):
         err, ms, plain_ms, bound_ms, bound_by = rows[row]

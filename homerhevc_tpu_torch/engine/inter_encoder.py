@@ -211,6 +211,8 @@ class TorchInterEncoder:
         self.mvd_bits = torch.as_tensor(T.MVD_BITS, device=self.device)
         self.rd_lambda_p = torch.as_tensor(T.RD_LAMBDA_P_TAB,
                                            device=self.device)
+        self.chroma_qp_map = torch.as_tensor(T.CHROMA_QP_MAP,
+                                             device=self.device)
         self.taps = torch.as_tensor(LUMA_TAPS, device=self.device)
         # the +-step neighbourhoods of the sub-pel refinement
         self.steps = {s: [torch.tensor([dx, dy], dtype=torch.int32,
@@ -442,8 +444,33 @@ class TorchInterEncoder:
 
     # ---- device program -----------------------------------------------------
 
+    def _qp_vectors(self, qp_map):
+        """The per-block QP vectors of a per-CTB QP map (rows, cols) on the
+        device: (luma, chroma) for the CU16 blocks, the CTB32s (tree) and
+        the four TU quarters of each CTB64 (CU64 layer); those of a layer
+        the program does not run are None."""
+        ctu = self.ps.ctu_size
+        qpm = qp_map.to(torch.int32)
+
+        def chroma(q):
+            return self.chroma_qp_map[
+                torch.clamp(q + self.ps.cb_qp_offset, 0, 57).long()]
+        qp16 = _rep(qpm, ctu // self.cu)[:self.gh, :self.gw].reshape(-1)
+        out = [(qp16, chroma(qp16)), (None, None), (None, None)]
+        if self.tree:
+            qp32 = _rep(qpm, ctu // 32)[:self.gh2, :self.gw2].reshape(-1)
+            out[1] = (qp32, chroma(qp32))
+        if self.tree64:
+            qp64 = qpm.reshape(-1).repeat_interleave(4)
+            out[2] = (qp64, chroma(qp64))
+        return out
+
     def _impl(self, src_y, src_u, src_v, ref_y, ref_u, ref_v, zf_mult,
-              qp: int):
+              qp: int, qp_map=None):
+        """One P frame. qp_map: None, or the per-CTB QP map (rows, cols)
+        int32 on the device (AQ / row-RC): the quant of every level reads
+        per-block QP vectors; the lambdas and the zero-forcing stay at the
+        slice QP; merge-RD and intra-in-P are skipped."""
         cu, cuc = self.cu, self.cu // 2
         gw, gh = self.gw, self.gh
         dev = self.device
@@ -455,6 +482,11 @@ class TorchInterEncoder:
         qp_c = int(T.CHROMA_QP_MAP[min(max(qp + self.ps.cb_qp_offset, 0),
                                        57)])
         lam16 = int(T.LAMBDA_ME_X16_TAB[qp])
+        if qp_map is None:
+            (qp16, qpc16), (qp32, qpc32), (qp64, qpc64) = [(qp, qp_c)] * 3
+        else:
+            (qp16, qpc16), (qp32, qpc32), (qp64, qpc64) = \
+                self._qp_vectors(qp_map)
         mvs, prior, mv32, prior2, mv64, prior4 = self._hier_me(src_y, ry,
                                                                lam16)
 
@@ -489,7 +521,7 @@ class TorchInterEncoder:
         # ---- luma MC + residual ----
         mvs, pred = subpel(x0s, y0s, src_blk, mvs, cu, prior)
         resid = src_blk - pred
-        lvl, rres = code(resid, cu, qp)
+        lvl, rres = code(resid, cu, qp16)
         rec = _recon(pred, lvl, rres)
 
         lam = self.rd_lambda_p[qp]                        # float32 scalar
@@ -506,7 +538,7 @@ class TorchInterEncoder:
         # ---- batched merge-RD (golden twin: merge_rd_fast): the first two
         # spec merge candidates from the pre-pass field, re-coded and
         # model-costed; a king-independent improving subset flips ----
-        if (not self.tree) and self.merge_rd:
+        if (not self.tree) and self.merge_rd and qp_map is None:
             mvg = mvs.reshape(gh, gw, 2)
             pad_m = torch.zeros((gh + 2, gw + 2, 2), dtype=mvs.dtype,
                                 device=dev)
@@ -575,25 +607,25 @@ class TorchInterEncoder:
         ref_padU = pad_edge(ref_u.to(torch.int32), padC, padC)
         ref_padV = pad_edge(ref_v.to(torch.int32), padC, padC)
 
-        def chroma(src_c, ref_padc, x0v, y0v, n, mv, rows):
+        def chroma(src_c, ref_padc, x0v, y0v, n, mv, rows, q):
             """Chroma MC + residual of the n x n chroma blocks at luma
-            origins (x0v, y0v), coded as TUs of at most 16: (levels,
-            recon), (B, n, n) each."""
+            origins (x0v, y0v), coded as TUs of at most 16 at the QP q:
+            (levels, recon), (B, n, n) each."""
             predc = mc_chroma_batch(ref_padc, padC, x0v // 2, y0v // 2, n,
                                     mv)
             src_cb = _blocks(src_c[:rows], n)
             resc = src_cb - predc
             if n <= 16:
-                lvlc, rrc = code(resc, n, qp_c)
+                lvlc, rrc = code(resc, n, q)
                 return lvlc, _recon(predc, lvlc, rrc)
             # CU64: four 16x16 TUs over the 32x32 chroma block
-            lvlc, rrc = code(_quarters(resc, 16), 16, qp_c)
+            lvlc, rrc = code(_quarters(resc, 16), 16, q)
             return (_full(lvlc, 16),
                     torch.clamp(predc + _full(rrc, 16), 0, 255))
 
         hc, wc = self.h // 2, self.w // 2
-        lvl_u, rec_u = chroma(su, ref_padU, x0s, y0s, cuc, mvs, hc)
-        lvl_v, rec_v = chroma(sv, ref_padV, x0s, y0s, cuc, mvs, hc)
+        lvl_u, rec_u = chroma(su, ref_padU, x0s, y0s, cuc, mvs, hc, qpc16)
+        lvl_v, rec_v = chroma(sv, ref_padV, x0s, y0s, cuc, mvs, hc, qpc16)
         recon_y = _unblock(rec, cu, self.h, self.w)
         recon_u = _unblock(rec_u, cuc, hc, wc)
         recon_v = _unblock(rec_v, cuc, hc, wc)
@@ -608,9 +640,10 @@ class TorchInterEncoder:
         ts8 = 16
         excl16 = None
 
+        intra_in_p = self.cfg.intra_in_p and qp_map is None
         if not self.tree:
             c16 = None
-            if self.cfg.intra_in_p:
+            if intra_in_p:
                 c16 = cu_cost(src_blk, rec, lvl, mvs, prior).reshape(gh, gw)
         else:
             # ---- CU32 layer: code each full CTB32 as one CU32, keep
@@ -624,7 +657,7 @@ class TorchInterEncoder:
             y0s2 = torch.div(b2, gw2, rounding_mode="floor") * 32
             src32 = _blocks(sy[:gh2 * 32], 32)
             mv32, pred32 = subpel(x0s2, y0s2, src32, mv32, 32, prior2)
-            lvl32, rres32 = code(src32 - pred32, 32, qp)
+            lvl32, rres32 = code(src32 - pred32, 32, qp32)
             nz32 = (lvl32 != 0).any(dim=-1).any(dim=-1)
             rec32 = _recon(pred32, lvl32, rres32)
             c32 = cu_cost(src32, rec32, lvl32, mv32, prior2) \
@@ -639,9 +672,9 @@ class TorchInterEncoder:
                 # never wins
                 choose = choose & (self._spread(mv16g[:gh2 * 2], 2) <= 16)
             lvl_u32, rec_u32 = chroma(su, ref_padU, x0s2, y0s2, 16, mv32,
-                                      gh2 * 16)
+                                      gh2 * 16, qpc32)
             lvl_v32, rec_v32 = chroma(sv, ref_padV, x0s2, y0s2, 16, mv32,
-                                      gh2 * 16)
+                                      gh2 * 16, qpc32)
 
             planes = [_combine32(p, b, m, choose) for p, b, m in zip(
                 planes, (rec32, rec_u32, rec_v32, lvl32, lvl_u32, lvl_v32),
@@ -671,7 +704,8 @@ class TorchInterEncoder:
                 y0s4 = torch.div(b4, gw4, rounding_mode="floor") * 64
                 src64 = _blocks(sy, 64)
                 mv64, pred64 = subpel(x0s4, y0s4, src64, mv64, 64, prior2)
-                lvl64q, rr64q = code(_quarters(src64 - pred64, 32), 32, qp)
+                lvl64q, rr64q = code(_quarters(src64 - pred64, 32), 32,
+                                     qp64)
                 nz64q = (lvl64q != 0).any(dim=-1).any(dim=-1)  # (B4*4,)
                 lvl64 = _full(lvl64q, 32)
                 rec64 = torch.clamp(pred64 + _full(rr64q, 32), 0, 255)
@@ -689,9 +723,9 @@ class TorchInterEncoder:
                     choose64 = choose64 & (
                         self._spread(mv16p[:gh4 * 4, :gw4 * 4], 4) <= 16)
                 lvl_u64, rec_u64 = chroma(su, ref_padU, x0s4, y0s4, 32,
-                                          mv64, hc)
+                                          mv64, hc, qpc64)
                 lvl_v64, rec_v64 = chroma(sv, ref_padV, x0s4, y0s4, 32,
-                                          mv64, hc)
+                                          mv64, hc, qpc64)
 
                 def combine64(plane, blocks, m):
                     p64 = _unblock(blocks.to(plane.dtype), m, gh4 * m,
@@ -720,7 +754,7 @@ class TorchInterEncoder:
 
         recon_y, recon_u, recon_v, ly, lu, lv = planes
         intra8 = None
-        if self.cfg.intra_in_p:
+        if intra_in_p:
             (recon_y, recon_u, recon_v, ly, lu, lv, intra16,
              imode16) = self._intra_fallback(
                 sy, su, sv, recon_y, recon_u, recon_v, ly, lu, lv, qp,
@@ -1050,9 +1084,10 @@ class TorchInterEncoder:
             bmv = torch.where(better[:, None], cand, bmv)
         return bmv
 
-    def _code(self, resid, n: int, q: int, zf_mult):
-        """TU coding of a residual: T, Q (+ SBH), IQ, IT and the
-        zero-forcing. Returns (levels, reconstructed residual)."""
+    def _code(self, resid, n: int, q, zf_mult):
+        """TU coding of a residual at the QP q (an int, or a per-block
+        vector): T, Q (+ SBH), IQ, IT and the zero-forcing. Returns
+        (levels, reconstructed residual)."""
         sl = self.ps.scaling_list_enabled
         coef = forward_transform(resid, False)
         lvl = quantize(coef, n, q, False, sl)
@@ -1257,12 +1292,22 @@ class TorchInterEncoder:
 
     # ---- host driver ---------------------------------------------------
 
-    def dispatch(self, src, ref, avg_dist: float = 1000.0, qp=None):
+    def dispatch(self, src, ref, avg_dist: float = 1000.0, qp=None,
+                 qp_map=None):
         """Launch the device program; returns the device output tuple
         without any device->host copy. self.last_dev holds the
         (device-resident) post-deblock, post-SAO recon for chaining the
-        next frame."""
-        return self._run(self._impl, (*src, *ref), avg_dist, qp)
+        next frame. qp_map: a per-CTB QP map (numpy, rows x cols),
+        uploaded once; deblocking must be off with one (the decoder-view
+        QP the deblocking filter reads needs the host's inference)."""
+        kw = {}
+        if qp_map is not None:
+            if self.ps.deblocking_enabled:
+                raise ValueError("per-CTB QP maps need deblocking off (the "
+                                 "decoder-view QP)")
+            kw["qp_map"] = torch.as_tensor(np.asarray(qp_map, np.int32),
+                                           device=self.device)
+        return self._run(self._impl, (*src, *ref), avg_dist, qp, **kw)
 
     def dispatch_b(self, src, ref0, ref1, avg_dist: float = 1000.0,
                    qp=None):
@@ -1270,18 +1315,18 @@ class TorchInterEncoder:
         reference ref0 and the list-1 reference ref1."""
         return self._run(self._impl_b, (*src, *ref0, *ref1), avg_dist, qp)
 
-    def _run(self, impl, planes, avg_dist: float, qp):
+    def _run(self, impl, planes, avg_dist: float, qp, **kw):
         qp = self.cfg.qp if qp is None else int(qp)
         zf = torch.tensor(zf_multiplier(avg_dist, qp), dtype=torch.float32,
                           device=self.device)
         planes = [as_device_plane(a, self.device) for a in planes]
         with PROFILER.scope("disp_run"):
-            out = impl(*planes, zf, qp)
+            out = impl(*planes, zf, qp, **kw)
         self.last_dev = (out[0], out[1], out[2])
         return out
 
     def fetch(self, out, is_b: bool = False, bi: bool = False,
-              ref_dists=(1, 2)):
+              ref_dists=(1, 2), qp_map=None):
         """Download one dispatched frame's wire buffer and build the
         FrameDesc (host half of encode_frame); recon stays on the device.
         The meta is read in the JAX order: mvs (and with bi, the list-1
@@ -1290,7 +1335,9 @@ class TorchInterEncoder:
         intra-in-P mask and modes, SAO, the row SSDs, then the CG wire.
         bi: the output came from _impl_b, which has no CU64 layer and no
         intra-in-P; is_b: a B slice of uni-L0 CUs; ref_dists feed the
-        AMVP scaling of the tree's syntax selection."""
+        AMVP scaling of the tree's syntax selection; qp_map: the per-CTB QP
+        map the frame was dispatched with (its program ran no intra-in-P),
+        attached per 8x8 unit for the cu_qp_delta serializer."""
         recon_y, recon_u, recon_v, ly, lu, lv, meta = out
         meta_np = meta.cpu().numpy()
         gh, gw = self.gh, self.gw
@@ -1320,7 +1367,7 @@ class TorchInterEncoder:
             choose64 = take(gh4 * gw4, None, (gh4, gw4))
             mv64 = take(gh4 * gw4 * 4, np.int16, (gh4, gw4, 2))
         intra16 = imode16 = None
-        if self.cfg.intra_in_p and not bi:
+        if self.cfg.intra_in_p and not bi and qp_map is None:
             gih, giw = self.h // 16, self.w // 16
             intra16 = take(gih * giw, None, (gih, giw)).astype(bool)
             imode16 = take(gih * giw, None, (gih, giw))
@@ -1357,6 +1404,11 @@ class TorchInterEncoder:
         desc.coef_v = np.ascontiguousarray(pv, np.int16)
         desc.row_ssd_y = row_ssd     # exact luma SSD per row vs source
         desc.sao_params = sao_params  # device-decided (recon pre-filtered)
+        if qp_map is not None:
+            r = self.ps.ctu_size // 8
+            desc.qp_map = np.repeat(np.repeat(
+                np.asarray(qp_map), r, 0), r, 1)[
+                :self.h // 8, :self.w // 8].astype(np.int8)
         if intra16 is not None and intra16.any():
             m8 = np.repeat(np.repeat(intra16, 2, 0), 2, 1)
             desc.pred_mode[m8] = MODE_INTRA
@@ -1400,10 +1452,12 @@ class TorchInterEncoder:
                 DevicePlane(recon_v))
 
     def encode_frame(self, src, ref, avg_dist: float = 1000.0, qp=None, *,
-                     is_b: bool = False):
-        """One P frame (or, with is_b, a B frame of uni-L0 CUs)."""
-        return self.fetch(self.dispatch(src, ref, avg_dist, qp=qp),
-                          is_b=is_b)
+                     is_b: bool = False, qp_map=None):
+        """One P frame (or, with is_b, a B frame of uni-L0 CUs), with a
+        per-CTB QP map when qp_map is given."""
+        return self.fetch(self.dispatch(src, ref, avg_dist, qp=qp,
+                                        qp_map=qp_map),
+                          is_b=is_b, qp_map=qp_map)
 
     def encode_frame_b(self, src, ref0, ref1, avg_dist: float = 1000.0,
                        qp=None, ref_dists=(1, -1)):

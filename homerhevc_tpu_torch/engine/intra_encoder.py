@@ -169,29 +169,38 @@ class WireFrameEncoder:
     and cg_C, and gives _frame_impl(src_y, src_u, src_v, qp) -> (recon_y,
     recon_u, recon_v, ly, lu, lv, meta), _meta_prefix() (the bytes of a
     frame's meta row before its CG wire) and _desc(prefix) (a FrameDesc
-    with the maps of that prefix; the coefficients are attached here)."""
+    with the maps of that prefix; the coefficients are attached here).
+    qp_maps (per-frame per-CU QP maps, the CU16 encoder's AQ program)
+    reach _frame_impl as a fifth argument only when given."""
 
     def pack_upload(self, frames):
         return pack_frames(frames, self.w, self.h, self.device)
 
-    def dispatch_packed(self, handle, qps):
+    def dispatch_packed(self, handle, qps, qp_maps=None):
         with PROFILER.scope("disp_run"):
             qp = torch.as_tensor(np.asarray(qps, np.int32),
                                  device=self.device)
-            return self._frame_impl(*unpack_frames(handle, self.w, self.h),
-                                    qp)
+            planes = unpack_frames(handle, self.w, self.h)
+            if qp_maps is None:
+                return self._frame_impl(*planes, qp)
+            # one upload of the batch's maps; they stay on the device
+            maps = torch.as_tensor(np.asarray(qp_maps, np.int32),
+                                   device=self.device)
+            return self._frame_impl(*planes, qp, maps)
 
-    def dispatch_frames(self, ys, us, vs, qps=None):
+    def dispatch_frames(self, ys, us, vs, qps=None, qp_maps=None):
         """Launch the batched frame program; returns device tensors (CUDA
         work is asynchronous). Pair with fetch_frames."""
         if qps is None:
             qps = [self.cfg.qp] * len(ys)
         return self.dispatch_packed(self.pack_upload(list(zip(ys, us, vs))),
-                                    qps)
+                                    qps, qp_maps)
 
-    def fetch_frames(self, out, n_frames: int):
+    def fetch_frames(self, out, n_frames: int, qp_maps=None):
         """Download the compact wire buffer and rebuild FrameDescs;
-        reconstruction planes stay device-resident (DevicePlane)."""
+        reconstruction planes stay device-resident (DevicePlane). qp_maps:
+        the host's per-CU maps of an AQ dispatch, attached to each desc
+        for the cu_qp_delta serializer."""
         ry, ru, rv, ly, lu, lv, meta = out
         with PROFILER.scope("fetch_meta"):
             meta_np = meta.cpu().numpy()           # ONE device->host copy
@@ -215,17 +224,26 @@ class WireFrameEncoder:
                         np.ascontiguousarray(p, np.int16) for p in planes)
                 else:     # wire-direct: FrameDesc.densify on demand
                     desc.coef_y = desc.coef_u = desc.coef_v = None
+                if qp_maps is not None:
+                    # per-8x8 targets (the device quantized with exactly
+                    # these per-CU QPs)
+                    r = self.cu // 8
+                    desc.qp_map = np.repeat(np.repeat(
+                        np.asarray(qp_maps[i], np.int8), r, 0), r, 1)
                 results.append((desc, DevicePlane(ry, i),
                                 DevicePlane(ru, i), DevicePlane(rv, i)))
         return results
 
-    def encode_frames(self, ys, us, vs, qps=None):
+    def encode_frames(self, ys, us, vs, qps=None, qp_maps=None):
         """Batched: lists of F frames -> list of (desc, ry, ru, rv)."""
-        return self.fetch_frames(self.dispatch_frames(ys, us, vs, qps=qps),
-                                 len(ys))
+        return self.fetch_frames(
+            self.dispatch_frames(ys, us, vs, qps=qps, qp_maps=qp_maps),
+            len(ys), qp_maps=qp_maps)
 
-    def encode_frame(self, y, u, v, qp: int):
-        return self.encode_frames([y], [u], [v], qps=[qp])[0]
+    def encode_frame(self, y, u, v, qp: int, qp_map=None):
+        return self.encode_frames([y], [u], [v], qps=[qp],
+                                  qp_maps=None if qp_map is None
+                                  else [qp_map])[0]
 
 
 def _sh1(a: torch.Tensor) -> torch.Tensor:
@@ -313,10 +331,13 @@ class TorchIntraEncoder(WireFrameEncoder):
 
     # -- whole-frame program --------------------------------------------------
 
-    def _frame_impl(self, src_y, src_u, src_v, qp):
-        """src_*: (F, H, W) / (F, H/2, W/2) uint8 tensors; qp: (F,) int32.
-        Returns (recon_y, recon_u, recon_v (uint8), ly, lu, lv (int16),
-        meta (F, meta_len) uint8)."""
+    def _frame_impl(self, src_y, src_u, src_v, qp, qp_map=None):
+        """src_*: (F, H, W) / (F, H/2, W/2) uint8 tensors; qp: (F,) int32;
+        qp_map: None, or per-CU luma QPs (F, gh, gw) int32 (per-CU
+        adaptive quantization, the twin of the JAX package's
+        _encode_frame_impl_aq; deblocking must be off, as there). Returns
+        (recon_y, recon_u, recon_v (uint8), ly, lu, lv (int16), meta (F,
+        meta_len) uint8)."""
         tab = self.tab
         cu, cuc = self.cu, self.cu // 2
         gw, gh = self.gw, self.gh
@@ -332,6 +353,23 @@ class TorchIntraEncoder(WireFrameEncoder):
         qpc_b = qp_c[:, None].expand(F, gh).reshape(-1)
         bmpm_b = bits_mpm[:, None].expand(F, gh).reshape(-1, 1)
         brem_b = bits_rem[:, None].expand(F, gh).reshape(-1, 1)
+        per_diag = None
+        if qp_map is not None:
+            if self.ps.deblocking_enabled:
+                raise ValueError("per-CU QP maps need deblocking off (the "
+                                 "decoder-view QP)")
+            # the slot QPs of every diagonal through the padded d_flat
+            # index, the pad slot at the slice QP; (ndiag, F*gh) so that
+            # each step takes a view
+            flat_q = torch.cat([qp_map.reshape(F, -1).to(torch.int32),
+                                qp[:, None]], dim=1)
+            qp_d = flat_q[:, tab["d_flat"]].permute(1, 0, 2) \
+                .reshape(self.ndiag, F * gh).contiguous()
+            qpc_d = tab["chroma_qp_map"][
+                torch.clamp(qp_d + self.ps.cb_qp_offset, 0, 57).long()]
+            per_diag = (qp_d, qpc_d,
+                        tab["bits_mpm"][qp_d.long()][..., None],
+                        tab["bits_rem"][qp_d.long()][..., None])
 
         def diag_blocks(plane, n):
             hh, ww = plane.shape[1:]
@@ -352,6 +390,8 @@ class TorchIntraEncoder(WireFrameEncoder):
         modes_r = torch.arange(35, dtype=torch.int32, device=dev)
         outs = []
         for d in range(self.ndiag):
+            if per_diag is not None:
+                qp_b, qpc_b, bmpm_b, brem_b = (t[d] for t in per_diag)
             mask_y, mask_c = tab["d_mask_y"][d], tab["d_mask_c"][d]
             above_ok = tab["d_above_ok"][d]
             has_left = tab["d_has_left"][d]

@@ -22,6 +22,13 @@ EncoderPipeline, restricted to the configurations the port covers:
     previous anchors; elsewhere B frames predict from the earlier anchor
     alone. Search range 24.
 
+Per-CTB QP maps (AQ, and row-RC under CBR / VBR; cu_qp_delta with the
+quantization group a CTB) run at CU16 without intra_rdo and with
+deblocking off, all-intra or IPPP, where the JAX package runs them on its
+device: an AQ map per I frame (the batched path carries one per frame),
+the AQ map plus the row-RC offsets per P frame, each P frame emitted
+before the next is dispatched.
+
 SAO: the tree and P programs decide and apply SAO on the device and ship
 its parameters on the wire. The CU16 intra program has none, and for its
 frames SAO is decided and applied on the host (hevc/sao.py sao_decide),
@@ -46,7 +53,7 @@ import numpy as np
 
 from homerhevc_tpu_torch.config import EncoderConfig, RDMode
 from homerhevc_tpu_torch.device import resolve_device
-from homerhevc_tpu_torch.engine.rate_control import RateControl
+from homerhevc_tpu_torch.engine.rate_control import RateControl, aq_qp_map
 from homerhevc_tpu_torch.hevc.bitstream import (
     NAL_IDR_W_RADL, NAL_TRAIL_N, NAL_TRAIL_R, BitWriter, ebsp_row_escapes,
     make_nal,
@@ -103,11 +110,22 @@ def tree_ok(cfg: EncoderConfig) -> bool:
 def unported(cfg: EncoderConfig) -> str | None:
     """Why `cfg` (padded to whole CTUs) lies outside the configurations the
     port covers, and the ROADMAP.md Queue 1 item that brings it; None when
-    it is covered."""
+    it is covered. Per-CTB QP maps (AQ, row-RC) run where the JAX package
+    runs them on its device (its _tpu_ok / _tpu_inter_ok): at CU16 without
+    intra_rdo, with deblocking off, all-intra or IPPP."""
     inter = cfg.gop_size != 0
+    maps = cfg.aq_strength > 0 or cfg.rc_ctu
     checks = (
-        (cfg.aq_strength > 0 or cfg.rc_ctu,
-         "per-CTB QP maps, AQ and row-RC (Queue 1 item 4)"),
+        (maps and cfg.deblocking,
+         "per-CTB QP maps (AQ, row-RC) with deblocking on, which the JAX "
+         "package codes only on its numpy golden path (the decoder-view QP "
+         "map, decoder_qp_map8: Queue 1 item 7)"),
+        (maps and (cfg.cu_size != 16 or cfg.intra_rdo),
+         "per-CTB QP maps (AQ, row-RC) with CU-tree I frames, which the JAX "
+         "package codes only on its numpy golden path (Queue 1 item 7)"),
+        (maps and inter and cfg.num_b >= 1,
+         "per-CTB QP maps (AQ, row-RC) with B frames, IBP's anchors taking "
+         "maps and its B frames none (Queue 1 item 4, IBP with maps)"),
         ((cfg.cu_size != 16 or cfg.intra_rdo) and not tree_ok(cfg),
          "an intra configuration the JAX package encodes only on its numpy "
          "golden path (RD_FULL, intra_rdo at CU16, CU32/CU64 without "
@@ -130,7 +148,7 @@ class _AsyncFetch:
     overlap the CABAC serialization of the previous batch on the main
     thread."""
 
-    def __init__(self, enc, out, frames, qp):
+    def __init__(self, enc, out, frames, qp, qp_maps=None):
         self.frames = frames
         self.qp = qp
         self._result = None
@@ -138,7 +156,8 @@ class _AsyncFetch:
 
         def run():
             try:
-                self._result = enc.fetch_frames(out, len(frames))
+                self._result = enc.fetch_frames(out, len(frames),
+                                                qp_maps=qp_maps)
             except BaseException as e:   # re-raised on join()
                 self._err = e
         self._t = threading.Thread(target=run, daemon=True)
@@ -181,7 +200,8 @@ class TorchPipeline:
         self._upload_q: list = []   # packed source batches on the device
         self._pending_q: list = []  # dispatched intra batches
         self._fetch_inflight = None  # _AsyncFetch of the oldest batch
-        self._p_pendings: list = []  # dispatched P frames (depth 2)
+        # dispatched P frames: depth 2, or 1 (inline) with cu_qp_delta
+        self._p_pendings: list = []
         # the P chain's references: _ref for the next P frame (the I
         # frame's filtered recon, then each dispatched P frame's
         # device-resident recon), _ref_prev the one before it on the
@@ -200,6 +220,8 @@ class TorchPipeline:
         self._anchor_m2 = None
         self.avg_dist = 1000.0   # reference init, hmr_encoder_lib.c:913
         self.rc = RateControl(cfg)
+        # the exact per-CTU-row byte counts of the last WPP slice (row-RC)
+        self._last_row_sizes = None
         self._intra_enc = None
         self._inter_enc = None
 
@@ -229,6 +251,60 @@ class TorchPipeline:
         # IBP anchors are two display frames apart: double the window so
         # that anchor ME covers the same velocity as the IPPP chain
         return 24 if self.cfg.num_b >= 1 else 16
+
+    # ---- per-CTB QP maps (AQ, row-RC) -------------------------------------
+
+    def _aq_map(self, y, qp):
+        """The per-CTB AQ map of an I frame, or None with cu_qp_delta off
+        (maps never reach the tree encoder: unported refuses them
+        there)."""
+        if not self.ps.cu_qp_delta_enabled:
+            return None
+        return aq_qp_map(np.asarray(y), self.ps.ctu_size, qp,
+                         self.cfg.aq_strength)
+
+    def _inter_qp_map(self, y, qp):
+        """The per-CTB QP map of a P frame: the AQ map and/or the row-RC
+        offsets of the last P frame's row shares, clipped to [0, 51]; None
+        when neither applies."""
+        if not self.ps.cu_qp_delta_enabled:
+            return None
+        ctu = self.ps.ctu_size
+        rows = -(-self.cfg.height // ctu)
+        cols = -(-self.cfg.width // ctu)
+        base = None
+        if self.cfg.aq_strength > 0:
+            base = aq_qp_map(np.asarray(y), ctu, qp, self.cfg.aq_strength)
+        if self.cfg.rc_ctu and self.rc.enabled:
+            off = self.rc.row_offsets(rows)
+            if base is None:
+                base = np.full((rows, cols), qp, np.int32)
+            base = np.clip(base + off[:, None], 0, 51).astype(np.int32)
+        return base
+
+    def _note_row_shares(self, desc) -> None:
+        """Row-RC: the emitted P frame's per-CTB-row share of the bits, from
+        the WPP serializer's exact row sizes, else from the coefficient
+        mass (3 * nnz + sum |level|, the device cost model's proxy)."""
+        if self._last_row_sizes is not None:
+            self.rc.note_row_shares(
+                np.asarray(self._last_row_sizes, np.float64) + 1)
+            return
+        if desc.coef_y is None and desc.cg_wire is None:
+            return
+        d = desc.densify()
+        ctu = self.ps.ctu_size
+        rows = -(-self.cfg.height // ctu)
+
+        def row_mass(plane, unit):
+            p = np.abs(plane.astype(np.int64))
+            pad = rows * unit - p.shape[0]
+            if pad > 0:
+                p = np.pad(p, ((0, pad), (0, 0)))
+            return (p + 2 * (p != 0)).reshape(rows, -1).sum(axis=1)
+        self.rc.note_row_shares(row_mass(d.coef_y, ctu)
+                                + row_mass(d.coef_u, ctu // 2)
+                                + row_mass(d.coef_v, ctu // 2) + 1)
 
     # ---- serialization ------------------------------------------------------
 
@@ -260,6 +336,7 @@ class TorchPipeline:
                                          sao_params, dists, rdl0)
         if ps.wpp:
             payload, row_sizes = res
+            self._last_row_sizes = row_sizes
             # entry points count escaped bytes (spec 7.4.7.1)
             with PROFILER.scope("ser_escapes"):
                 esc = ebsp_row_escapes(payload, row_sizes)
@@ -373,6 +450,8 @@ class TorchPipeline:
                 ssd = int(np.dot(d, d))
             avg = float(ssd) / (np.asarray(src[0]).size / 16.0)
             self.avg_dist = avg * (1.5 if slice_type == SLICE_I else 1.0)
+        if self.cfg.rc_ctu and self.rc.enabled and slice_type != SLICE_I:
+            self._note_row_shares(desc)
         oh, ow = self.out_h, self.out_w
 
         def recon_thunk(ry=ry, ru=ru, rv=rv):
@@ -431,7 +510,8 @@ class TorchPipeline:
         if intra:
             yield from self._drain_p_pending()
             with PROFILER.scope("analyze_intra_device"):
-                desc, ry, ru, rv = self._intra().encode_frame(y, u, v, qp)
+                desc, ry, ru, rv = self._intra().encode_frame(
+                    y, u, v, qp, qp_map=self._aq_map(y, qp))
             ef = self._emit(desc, ry, ru, rv, (y, u, v), qp=qp)
             # the next P frame predicts from the recon as filtered by SAO;
             # references never cross an IDR
@@ -446,27 +526,35 @@ class TorchPipeline:
         # Generalized-B (cfg.gpb, or num_ref_frames 2 realized as the
         # two-list t-1 / t-2 machinery): once two references exist, the
         # frame bi-predicts from t-1 (list 0) and t-2 (list 1), at CTU 32.
+        # With cu_qp_delta (per-CTB QP maps, CU16 only) each P frame is
+        # fetched and emitted before the next is dispatched, as the JAX
+        # package runs them (its _p_pipeline_ok): the zero-forcing
+        # feedback and row-RC's row shares then come from the frame
+        # just before.
         enc = self._inter()
         ref, ref2 = self._ref, self._ref_prev
         gpb = ((self.cfg.gpb or self.cfg.num_ref_frames >= 2)
                and ref2 is not None and self.ps.ctu_size == 32)
+        qp_map = self._inter_qp_map(y, qp)
         with PROFILER.scope("dispatch_inter"):
             if gpb:
                 out = enc.dispatch_b((y, u, v), ref, ref2, self.avg_dist,
                                      qp=qp)
             else:
-                out = enc.dispatch((y, u, v), ref, self.avg_dist, qp=qp)
+                out = enc.dispatch((y, u, v), ref, self.avg_dist, qp=qp,
+                                   qp_map=qp_map)
         self._ref_prev, self._ref = ref, enc.last_dev
-        self._p_pendings.append((out, (y, u, v), qp, gpb))
-        if len(self._p_pendings) >= 2:
+        self._p_pendings.append((out, (y, u, v), qp, gpb, qp_map))
+        if len(self._p_pendings) >= (1 if self.ps.cu_qp_delta_enabled
+                                     else 2):
             yield from self._drain_p_pending(one=True)
 
     def _drain_p_pending(self, one: bool = False) -> Iterator:
         while self._p_pendings:
-            out, src, qp, gpb = self._p_pendings.pop(0)
+            out, src, qp, gpb, qp_map = self._p_pendings.pop(0)
             with PROFILER.scope("fetch_inter"):
-                desc, ry, ru, rv = self._inter().fetch(out, bi=gpb,
-                                                       ref_dists=(1, 2))
+                desc, ry, ru, rv = self._inter().fetch(
+                    out, bi=gpb, ref_dists=(1, 2), qp_map=qp_map)
             if gpb:
                 p = self.gop_poc
                 yield self._emit(desc, ry, ru, rv, src, slice_type=SLICE_B,
@@ -584,12 +672,16 @@ class TorchPipeline:
                 prev_results = self._fetch_inflight.join()
             self._fetch_inflight = None
         qp = self.rc.pic_qp(True)
+        maps = ([self._aq_map(fr[0], qp) for fr in frames]
+                if self.ps.cu_qp_delta_enabled else None)
         with PROFILER.scope("dispatch_intra"):
             self._pending_q.append(
-                (enc.dispatch_packed(handle, [qp] * len(frames)), frames, qp))
+                (enc.dispatch_packed(handle, [qp] * len(frames), maps),
+                 frames, qp, maps))
         if len(self._pending_q) >= 2:
-            out, pframes, pqp = self._pending_q.pop(0)
-            self._fetch_inflight = _AsyncFetch(enc, out, pframes, pqp)
+            out, pframes, pqp, pmaps = self._pending_q.pop(0)
+            self._fetch_inflight = _AsyncFetch(enc, out, pframes, pqp,
+                                               pmaps)
         if prev_results is not None:
             yield from self._emit_batch(*prev_results)
 
@@ -605,9 +697,10 @@ class TorchPipeline:
             self._fetch_inflight = None
             yield from self._emit_batch(*results)
         while self._pending_q:
-            out, pframes, qp = self._pending_q.pop(0)
+            out, pframes, qp, maps = self._pending_q.pop(0)
             with PROFILER.scope("fetch_intra"):
-                results = self._intra().fetch_frames(out, len(pframes))
+                results = self._intra().fetch_frames(out, len(pframes),
+                                                     qp_maps=maps)
             yield from self._emit_batch(results, pframes, qp)
 
     def _scene_change(self, y: np.ndarray) -> bool:

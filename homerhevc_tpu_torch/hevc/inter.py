@@ -464,9 +464,12 @@ def amvp_candidates_mref(mf: MotionField, x0: int, y0: int, n: int,
     """AMVP list for a multi-reference L0 (spec 8.5.3.2.5-8): neighbours
     carrying a DIFFERENT reference contribute through the POC-distance
     scaling branch. ref_dists[r] = POC(cur) - POC(ref r). A-candidate
-    scaling runs whenever no same-ref A hit exists; the scaled B pass runs
-    only when no A neighbour is available (isScaledFlagLX == 0), as in
-    the two-list variant. Reference analog: hmr_motion_inter.c:2218."""
+    scaling runs whenever no same-ref A hit exists. When NO A neighbour
+    exists (isScaledFlagLX == 0, spec 8.5.3.2.7 steps 4-5), the same-ref
+    B takes A's place and B is derived again as the first B neighbour's
+    motion, scaled, as in amvp_candidates_2. (The JAX package's copy keeps
+    only the same-ref B there: ROADMAP Queue 3.) Reference analog:
+    hmr_motion_inter.c:2218."""
     def nb(x, y):
         if x < 0 or y < 0 or x >= pic_w or y >= pic_h:
             return None
@@ -495,7 +498,8 @@ def amvp_candidates_mref(mf: MotionField, x0: int, y0: int, n: int,
     if mv_a is None and avail_a:
         mv_a = next((r for r in map(scaled, A) if r is not None), None)
     mv_b = next((r for r in map(same_ref, Bc) if r is not None), None)
-    if mv_b is None and not avail_a:
+    if not avail_a:
+        mv_a = mv_b
         mv_b = next((r for r in map(scaled, Bc) if r is not None), None)
     lst = []
     if mv_a is not None:

@@ -2,15 +2,19 @@
 dispatches.
 
     python3 -m homerhevc_tpu_torch.tools.p_frame_ops [--device cuda]
-        [--size 256x128] [--cu 64] [--perf 0] [--no-sao] [--bi]
+        [--size 256x128] [--cu 64] [--perf 0] [--no-sao] [--no-deblock]
+        [--bi] [--aq]
 
 A TorchDispatchMode sees every aten operation that
 TorchInterEncoder.dispatch runs for one P frame (IPPP, intra_rdo,
 deblocking, SAO and sign hiding at QP 32, the configuration of
-chip_smoke.py's path C; --no-sao turns SAO off), or with --bi
+chip_smoke.py's path C; --no-sao and --no-deblock turn SAO and
+deblocking off), or with --bi
 TorchInterEncoder.dispatch_b for one bi-capable frame (IBP at CTU 32,
-search 24: chip_smoke.py's path D), after one frame that warms the
-caches, on chip_smoke.py's bench clip. On a CUDA device most
+search 24: chip_smoke.py's path D), or with --aq one P frame with a
+per-CTB QP map (deblocking off, as a map needs; the map aq_qp_map gives
+the frame at strength 2: chip_smoke.py's path E), after one frame that
+warms the caches, on chip_smoke.py's bench clip. On a CUDA device most
 operations that are not views launch one kernel (a view launches none, a
 few operations none or two), so their count approximates the launches of
 a P frame before it runs on the card. The device is the card unless
@@ -46,13 +50,14 @@ class OpCounter(TorchDispatchMode):
 
 
 def p_frame_config(w: int, h: int, cu: int, perf: int = 0,
-                   sao: bool = True, gop_size: int = 1):
+                   sao: bool = True, gop_size: int = 1,
+                   deblocking: bool = True):
     """chip_smoke.py path C's configuration at w x h (path D's with
     gop_size 2)."""
     from homerhevc_tpu_torch.config import EncoderConfig
     return EncoderConfig(width=w, height=h, cu_size=cu, gop_size=gop_size,
                          intra_period=0, qp=32, intra_rdo=True,
-                         sign_hiding=True, deblocking=True, sao=sao,
+                         sign_hiding=True, deblocking=deblocking, sao=sao,
                          me_range=32, performance_mode=perf)
 
 
@@ -75,9 +80,9 @@ def bench_clip(w: int, h: int, n: int, seed: int = 42):
     return out
 
 
-def count_p_frame(enc, src, ref):
+def count_p_frame(enc, src, ref, qp_map=None):
     """(all aten operations, those not views) of one enc.dispatch."""
-    return _count(enc, lambda: enc.dispatch(src, ref))
+    return _count(enc, lambda: enc.dispatch(src, ref, qp_map=qp_map))
 
 
 def count_b_frame(enc, src, ref0, ref1):
@@ -102,15 +107,19 @@ def main():
     ap.add_argument("--perf", type=int, default=0)
     ap.add_argument("--no-sao", action="store_true")
     ap.add_argument("--bi", action="store_true")
+    ap.add_argument("--no-deblock", action="store_true")
+    ap.add_argument("--aq", action="store_true")
     a = ap.parse_args()
     from homerhevc_tpu_torch.device import resolve_device
     from homerhevc_tpu_torch.engine.inter_encoder import TorchInterEncoder
+    from homerhevc_tpu_torch.engine.rate_control import aq_qp_map
     from homerhevc_tpu_torch.hevc.headers import ParamSets
     from homerhevc_tpu_torch.state import reference_from_numpy
     device = resolve_device(a.device)
     w, h = (int(s) for s in a.size.split("x"))
     cfg = p_frame_config(w, h, a.cu, a.perf, sao=not a.no_sao,
-                         gop_size=2 if a.bi else 1)
+                         gop_size=2 if a.bi else 1,
+                         deblocking=not (a.aq or a.no_deblock))
     enc = TorchInterEncoder(ParamSets.from_config(cfg), cfg,
                             search=24 if a.bi else 16, device=device)
     frames = bench_clip(w, h, 4)
@@ -120,10 +129,13 @@ def main():
         enc.dispatch_b(frames[1], ref, ref1)           # warm-up
         ops, compute = count_b_frame(enc, frames[2], ref, ref1)
     else:
-        enc.dispatch(frames[1], ref)                   # warm-up
-        ops, compute = count_p_frame(enc, frames[2], ref)
+        qp_map = (aq_qp_map(frames[2][0], cfg.ctu_size, cfg.qp, 2.0)
+                  if a.aq else None)
+        enc.dispatch(frames[1], ref, qp_map=qp_map)    # warm-up
+        ops, compute = count_p_frame(enc, frames[2], ref, qp_map)
     print(json.dumps({"size": a.size, "cu": a.cu, "perf": a.perf,
-                      "sao": not a.no_sao, "bi": a.bi,
+                      "sao": not a.no_sao, "deblocking": cfg.deblocking,
+                      "bi": a.bi, "aq": a.aq,
                       "device": str(device), "aten_ops": ops,
                       "not_views": compute}), flush=True)
 

@@ -3,9 +3,9 @@ kernel (its 8-bit and wide-source entry points) against its plain
 version, the wrapper's checks on CUDA tensors, and the encoders (flat
 CU16 I and P, the intra CU tree, device SAO, the CU-tree P program with
 the FAR level and intra-in-P, the bi-capable B program, the
-generalized-B chain) and the ops they add on the card against the same
-code on the CPU. They skip here with a
-reason. This file imports no jax, so on the card's machine it runs
+generalized-B chain, the intra and P programs with per-CTB QP maps) and
+the ops they add on the card against the same code on the CPU. They
+skip here with a reason. This file imports no jax, so on the card's machine it runs
 without the JAX package's conftest:
 
     python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -316,3 +316,66 @@ def test_tree_encoder_on_card_matches_cpu(card, cu):
         for a, b in zip(crec, grec):
             assert np.array_equal(a, b)
         _assert_sao_equal(cd.sao_params, gd.sao_params)
+
+
+def test_intra_aq_encoder_on_card_matches_cpu(card):
+    """The CU16 intra program with per-CU QP maps (AQ), a batch of two
+    frames at different QPs: modes, levels, recon and qp_map equal the
+    CPU path's."""
+    from homerhevc_tpu_torch.engine.rate_control import aq_qp_map
+    w, h = 128, 64
+    rng = np.random.RandomState(5)
+    frames = [_frame(rng, w, h) for _ in range(2)]
+    for y, _, _ in frames:
+        y[:16] = 90                             # a flat band: AQ deltas
+    qps = [30, 34]
+    maps = [aq_qp_map(f[0], 16, q, 2.0) for f, q in zip(frames, qps)]
+    cfg = EncoderConfig(width=w, height=h, qp=30, gop_size=0, cu_size=16,
+                        sao=False, deblocking=False, sign_hiding=True,
+                        aq_strength=2.0)
+    ps = ParamSets.from_config(cfg)
+    out = {}
+    for dev in ("cpu", card):
+        res = TorchIntraEncoder(ps, cfg, device=dev).encode_frames(
+            *zip(*frames), qps=qps, qp_maps=maps)
+        out[str(dev)] = [(d.densify(), [np.asarray(p) for p in rec])
+                         for d, *rec in res]
+    for (cd, crec), (gd, grec) in zip(out["cpu"], out[str(card)]):
+        for f in ("luma_mode", "coef_y", "coef_u", "coef_v", "qp_map"):
+            assert np.array_equal(getattr(cd, f), getattr(gd, f)), f
+        for a, b in zip(crec, grec):
+            assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("cu", [16, 64])
+def test_p_program_with_map_on_card_matches_cpu(card, cu):
+    """The P program with a per-CTB QP map (deblocking off, SAO on) at
+    CU16 and at CTU 64 (QP vectors of every level): every desc field,
+    recon and SAO parameter equals the CPU path's; the sweep runs once."""
+    from homerhevc_tpu_torch.engine.rate_control import aq_qp_map
+    w, h = 128, 128
+    rng = np.random.RandomState(cu + 3)
+    y, u, v = _frame(rng, w, h)
+    y[64:] = (60 + np.arange(w) // 2)[None, :]    # smooth: large CUs win
+    cfg = EncoderConfig(width=w, height=h, qp=32, gop_size=1, intra_period=0,
+                        sao=True, deblocking=False, sign_hiding=True,
+                        cu_size=cu, intra_rdo=cu > 16)
+    ps = ParamSets.from_config(cfg)
+    src = (np.roll(y, 5, 1), np.roll(u, 2, 1), np.roll(v, 2, 1))
+    qp_map = aq_qp_map(src[0], cu, 32, 2.0)
+    assert len(np.unique(qp_map)) >= 2
+    out = {}
+    for dev in ("cpu", card):
+        before = LAUNCHES["coarse_sweep_sads"]
+        d, *rec = TorchInterEncoder(ps, cfg, device=dev).encode_frame(
+            src, reference_from_numpy((y, u, v), dev), 700.0, qp_map=qp_map)
+        assert LAUNCHES["coarse_sweep_sads"] == before + (dev == card)
+        out[str(dev)] = (d, [np.asarray(p) for p in rec])
+    (cd, crec), (gd, grec) = out["cpu"], out[str(card)]
+    for f in ("cu_depth", "tr_depth", "pred_mode", "mv", "coef_y", "coef_u",
+              "coef_v", "skip", "inter_mode", "merge_idx", "root_cbf",
+              "mvp_flag", "qp_map", "row_ssd_y"):
+        assert np.array_equal(getattr(cd, f), getattr(gd, f)), f
+    for a, b in zip(crec, grec):
+        assert np.array_equal(a, b)
+    _assert_sao_equal(cd.sao_params, gd.sao_params)

@@ -8,8 +8,10 @@ compiled at their shape anyway. The B cells (B_DIGESTS: 128x96 IBP
 and generalized-B streams through the Encoder) were computed from the
 JAX package's Encoder by tests/torch_golden.py jax_b_stream_digests
 (minutes of JAX tracing and compiling, not a tier-1 test); the port's CPU
-path hashes to them here. On the card, chip_smoke.py holds the port's CUDA
-path to these constants."""
+path hashes to them here, as it does to the AQ cells (AQ_DIGESTS: 96x64
+all-intra AQ and 128x64 IPPP AQ + row-RC under CBR, the JAX Encoder's
+digests, computed and held by tests/test_torch_aq.py). On the card,
+chip_smoke.py holds the port's CUDA path to these constants."""
 
 import types
 
@@ -85,6 +87,23 @@ def test_chip_smoke_digests_are_the_golden_encoders():
 
 def test_port_cpu_path_gives_the_golden_digests():
     assert chip_smoke.port_digests("cpu") == chip_smoke.GOLDEN_DIGESTS
+
+
+@pytest.mark.parametrize("cell", list(chip_smoke.AQ_CELLS))
+def test_port_reproduces_the_aq_stream_digests(cell):
+    """The AQ cells (AQ_DIGESTS: the JAX Encoder's, computed and held by
+    tests/test_torch_aq.py) on the port's CPU path."""
+    from homerhevc_tpu_torch.api import Encoder
+    from homerhevc_tpu_torch.config import EncoderConfig as TorchConfig
+    kw, n = chip_smoke.AQ_CELLS[cell]
+    kw = {**chip_smoke.AQ_CFG, **kw}
+    efs = chip_smoke.encode_all(
+        Encoder(TorchConfig(**kw), device="cpu"),
+        chip_smoke.aq_frames(n, kw["width"], kw["height"]))
+    assert chip_smoke.digests(
+        b"".join(e.annex_b() for e in efs),
+        [e.recon[c] for e in efs for c in "yuv"]) == \
+        chip_smoke.AQ_DIGESTS[cell]
 
 
 @pytest.mark.parametrize("cell", list(chip_smoke.B_CELLS))

@@ -177,10 +177,10 @@ def test_ctu64_stream_p_frames_equal_golden_and_decode(tmp_path):
     calls = []
     dispatch = pipe._inter().dispatch
 
-    def spy(src, ref, avg_dist=1000.0, qp=None):
+    def spy(src, ref, avg_dist=1000.0, qp=None, qp_map=None):
         calls.append((src, tuple(np.asarray(p, np.int32) for p in ref),
                       avg_dist, qp))
-        return dispatch(src, ref, avg_dist, qp=qp)
+        return dispatch(src, ref, avg_dist, qp=qp, qp_map=qp_map)
     pipe._inter().dispatch = spy
     descs = []
     emit = pipe._emit

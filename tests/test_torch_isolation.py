@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from homerhevc_tpu_torch.api import Encoder
-from homerhevc_tpu_torch.config import EncoderConfig, PerformanceMode, RDMode
+from homerhevc_tpu_torch.config import (BitrateMode, EncoderConfig,
+                                        PerformanceMode, RDMode)
 from tests.conftest import decode_annexb
 
 torch.set_num_threads(1)    # one intra-op thread per test worker
@@ -86,7 +87,10 @@ def test_port_encodes_with_jax_and_the_jax_package_blocked():
         "                 (dict(cu_size=32, gop_size=2, intra_rdo=True),\n"
         "                  ['I', 'P']),\n"
         "                 (dict(cu_size=32, gop_size=1, intra_rdo=True,\n"
-        "                       gpb=True), ['I', 'P'])):\n"
+        "                       gpb=True), ['I', 'P']),\n"
+        "                 (dict(cu_size=16, gop_size=1, aq_strength=2.0,\n"
+        "                       rc_ctu=True, deblocking=False),\n"
+        "                  ['I', 'P'])):\n"
         "    cfg = EncoderConfig(width=64, height=64, qp=32, sao=True, **kw)\n"
         "    enc = Encoder(cfg, device='cpu')\n"
         "    efs = list(enc.encode(y, c, c))\n"
@@ -111,11 +115,15 @@ _BASE = dict(width=64, height=64, cu_size=16, gop_size=1, qp=32, sao=False)
 _TREE = dict(gop_size=0, cu_size=32, intra_rdo=True)
 
 
-def _case(changes, item, index):
+def _case(changes, item, index, named=None):
     """A refusal case under the id it had when the list also held the B,
     generalized-B and two-reference cases (now in
-    test_lifted_config_encodes), so that each keeps its name."""
-    return pytest.param(changes, item, id=f"changes{index}-{item}")
+    test_lifted_config_encodes), so that each keeps its name; named: the
+    item in that id where the case once expected another (the per-CTB QP
+    map cases, refused by item 4 before it was ported and now by item
+    7's host paths)."""
+    return pytest.param(changes, item,
+                        id=f"changes{index}-{named or item}")
 
 
 @pytest.mark.parametrize("changes,item", [
@@ -123,19 +131,70 @@ def _case(changes, item, index):
     # program
     _case(dict(cu_size=32), "item 7", 0),
     _case(dict(cu_size=64), "item 7", 3),
-    _case(dict(intra_rdo=True, cu_size=32, aq_strength=1.0), "item 4", 4),
-    _case(dict(aq_strength=1.0), "item 4", 5),
-    _case(dict(rc_ctu=True), "item 4", 6),
+    # per-CTB QP maps with deblocking on (the default) or tree I frames:
+    # the JAX package's golden path
+    _case(dict(intra_rdo=True, cu_size=32, aq_strength=1.0), "item 7", 4,
+          "item 4"),
+    _case(dict(aq_strength=1.0), "item 7", 5, "item 4"),
+    _case(dict(rc_ctu=True), "item 7", 6, "item 4"),
     _case(dict(num_devices=2), "item 6", 9),
     _case(dict(_TREE, rd_mode=RDMode.RD_FULL), "item 7", 10),
-    _case(dict(_TREE, aq_strength=1.0), "item 4", 11),
+    _case(dict(_TREE, aq_strength=1.0), "item 7", 11, "item 4"),
     _case(dict(gop_size=0, intra_rdo=True), "item 7", 12),
     _case(dict(gop_size=0, cu_size=64), "item 7", 13),
     # more than two references: the JAX package's golden path only
-    _case(dict(num_ref_frames=3), "item 7", 14)])
+    _case(dict(num_ref_frames=3), "item 7", 14),
+    # maps with deblocking off but tree I frames (all-intra and IPPP)
+    _case(dict(_TREE, aq_strength=1.0, deblocking=False), "item 7", 15),
+    _case(dict(intra_rdo=True, cu_size=64, rc_ctu=True, deblocking=False),
+          "item 7", 16),
+    # maps with B frames: IBP's anchors would take maps, its B frames none
+    _case(dict(aq_strength=1.0, deblocking=False, num_b=1), "item 4", 17),
+    _case(dict(rc_ctu=True, deblocking=False, gop_size=2), "item 4", 18)])
 def test_unported_config_raises(changes, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         Encoder(EncoderConfig(**{**_BASE, **changes}), device="cpu")
+
+
+@pytest.mark.parametrize("changes,types", [
+    pytest.param(dict(gop_size=0, aq_strength=2.0, num_frames_in_flight=2),
+                 ["I"] * 3, id="aq-all-intra"),
+    pytest.param(dict(aq_strength=2.0), ["I", "P", "P"], id="aq-ippp"),
+    pytest.param(dict(rc_ctu=True, bitrate_mode=BitrateMode.VBR,
+                      bitrate_kbps=100), ["I", "P", "P"], id="rc_ctu-vbr"),
+    pytest.param(dict(aq_strength=2.0, rc_ctu=True, sao=True, wpp=True,
+                      intra_in_p=True, bitrate_mode=BitrateMode.CBR,
+                      bitrate_kbps=100), ["I", "P", "P"],
+                 id="aq-rc_ctu-cbr-sao-wpp-intra_in_p")])
+def test_map_config_encodes_and_decodes(changes, types, tmp_path):
+    """Per-CTB QP maps (AQ, row-RC) at CU16 with deblocking off, where the
+    JAX package runs them on its device, encode on the CPU (3 frames)
+    and decode to the port's recon; the frames carry their maps."""
+    yy, xx = np.mgrid[0:64, 0:64]
+    y = (100 + 60 * np.sin(xx / 5.0) + yy).astype(np.uint8)
+    y[:16] = 90                                  # a flat band: AQ deltas
+    c = np.full((32, 32), 128, np.uint8)
+    enc = Encoder(EncoderConfig(**{**_BASE, "deblocking": False,
+                                   "reinit_gop_on_scene_change": False,
+                                   **changes}), device="cpu")
+    maps = []
+    emit = enc._pipeline._emit
+
+    def spy(desc, *a, **k):
+        maps.append(desc.qp_map)
+        return emit(desc, *a, **k)
+    enc._pipeline._emit = spy
+    efs = [e for t in range(3) for e in enc.encode(np.roll(y, 3 * t, 1),
+                                                   c, c)]
+    efs += list(enc.flush())
+    assert [e.frame_type for e in efs] == types
+    assert len(maps) == 3 and all(m is not None for m in maps)
+    path = tmp_path / "maps.265"
+    path.write_bytes(b"".join(e.annex_b() for e in efs))
+    dec = decode_annexb(path)
+    assert len(dec) == 3
+    for d, e in zip(dec, efs):
+        assert np.array_equal(d, e.recon["y"])
 
 
 @pytest.mark.parametrize("changes,types", [
