@@ -47,8 +47,15 @@ passed):
      with its map), each with the sweep launched once per P frame, its
      I + 2 P equal on the CPU and one P frame profiled; E2 720p all-intra
      CU16 with AQ (bench.py's config, 4 in flight); E3 one 1088-line
-     CTU-64 P frame with a map, card equal to CPU; neither jax nor
-     homerhevc_tpu may be imported;
+     CTU-64 P frame with a map, card equal to CPU; path F, the CLI
+     (homerhevc_tpu_torch.cli.main in this process, slice 6): F0 BASELINE
+     config 2 (720p IPPP CU16, full-pel ME, fixed QP 32, 1 I + 15 P; the
+     sweep once per P frame, I + 2 P equal on the CPU, -o-raw equal to
+     the recon, every slice parsed back by the port's SliceDataParser),
+     F1 with half-pel ME, scaling lists and WPP (1 I + 7 P, I + 2 P equal
+     on the CPU), `python -m homerhevc_tpu_torch.cli` in a subprocess
+     (the same bytes, no jax imported), and the measure_rd, prof_device
+     and bench twins; neither jax nor homerhevc_tpu may be imported;
   5. where the time goes: one I and one P frame of slice 1, a P frame
      with SAO and two CTU-64 P frames of path C under torch.profiler, and
      the aten ops of a path-C P frame; one bi frame of path D counted by
@@ -1121,17 +1128,16 @@ def phase_path_e(frames, frames_1080):
         f"fps; bits/frame {np.mean([e.bits for e in efs2]):.0f}; luma PSNR "
         f"{mean2:.2f} dB; CTBs away from their slice QP "
         f"{100 * share2:.1f}%")
-    # one I frame of E2's encoder with and without a map under
-    # torch.profiler (phase 5's flat I frame has deblocking on)
+    # one I frame of E2's encoder with a map under torch.profiler (phase
+    # 5 profiles the flat I frame, with deblocking on)
     ie = enc2._pipeline._intra()
     y, u, v = frames[0]
-    for label, maps in (("with a map", [aq_qp_map(y, 16, 32, 2.0)]),
-                        ("without a map", None)):
-        n_k, busy, wall = profile_window(
-            f"path E E2 I frame {label} (dispatch)",
-            lambda: ie.dispatch_frames([y], [u], [v], qp_maps=maps))
-        log(f"[path E] E2 I frame {label}: {n_k} kernels, device busy "
-            f"{busy:.2f} ms")
+    maps = [aq_qp_map(y, 16, 32, 2.0)]
+    n_k, busy, wall = profile_window(
+        "path E E2 I frame with a map (dispatch)",
+        lambda: ie.dispatch_frames([y], [u], [v], qp_maps=maps))
+    log(f"[path E] E2 I frame with a map: {n_k} kernels, device busy "
+        f"{busy:.2f} ms")
     # E3: one CTU-64 P frame with a map, card against CPU (1080 lines
     # code as 1088, padded as the pipeline pads)
     from homerhevc_tpu_torch.tools.p_frame_ops import p_frame_config
@@ -1170,6 +1176,228 @@ def phase_path_e(frames, frames_1080):
         f"card {ct * 1e3:.1f} ms, CPU {ht:.1f} s; CU depths {depths}; every "
         f"field, the recon and the row SSDs equal")
     log(f"[path E] E0-E3 took {time.perf_counter() - t_e:.1f} s")
+    return sweeps
+
+
+F0_ARGS = ["-gop_size", "1", "-motion_estimation_precision", "0", "-qp",
+           "32"]                 # BASELINE config 2 with the CLI's defaults
+F1_ARGS = ["-gop_size", "1", "-motion_estimation_precision", "1",
+           "-scaling_lists", "1", "-wpp", "1"]
+N_PATH_F1 = 8                 # F1: 1 I + 7 P
+N_PATH_F_CPU = 3              # F0's and F1's I + 2 P re-encoded on the CPU
+N_PATH_F_RD = 8               # measure_rd's frames of F0's clip
+
+
+def run_cli(argv):
+    """homerhevc_tpu_torch.cli.main(argv) in this process: its return code
+    and its standard output lines."""
+    import contextlib
+    import io
+    from homerhevc_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def phase_path_f(frames):
+    """Path F: the CLI, homerhevc_tpu_torch.cli.main, in this process so
+    that the launch counters count it. F0 is BASELINE config 2 (720p
+    IPPP CU16, full-pel ME, fixed QP 32; deblocking, SAO and sign hiding
+    at the CLI's defaults), 1 I + 15 P with -psnr and -profile: the sweep
+    once per P frame, its I + 2 P re-encoded by the CLI on the CPU
+    (identical bytes and recon), the -o-raw file equal to the frames'
+    recon, every slice of the stream parsed back by the port's
+    SliceDataParser into the modes, MVs, levels and SAO parameters that
+    were serialized; one F0 P frame under torch.profiler. F1 is F0 with
+    half-pel ME, scaling lists and WPP, 1 I + 7 P, its I + 2 P equal on
+    the CPU; `python -m
+    homerhevc_tpu_torch.cli` with F1's arguments in a subprocess gives the
+    same bytes and imports neither jax nor homerhevc_tpu. Then the twins:
+    tools/measure_rd on F0's file (8 frames, QPs 32 and 37; at QP 32 the
+    kbps of the CLI's first 8 frames), tools/prof_device (me, impl and
+    fetch at 1088 lines, the CU32 tree P program), tools/bench (64 frames,
+    32 in flight). Returns the sweep's launches of F0 and F1."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f_") as tmp:
+        return _path_f(frames, tmp)
+
+
+def _path_f(frames, tmp):
+    """Path F with its files in the directory tmp."""
+    import contextlib
+    import io
+    import os
+    from homerhevc_tpu_torch.device import LAUNCHES, reset_launches
+    from homerhevc_tpu_torch.hevc.parse import (SerializedSlices,
+                                                desc_mismatches,
+                                                parse_slice_nal,
+                                                split_annexb)
+    from homerhevc_tpu_torch.tools import bench, measure_rd, prof_device
+    from homerhevc_tpu_torch.tools.p_frame_ops import read_yuv, write_yuv
+    from homerhevc_tpu_torch.utils.profiler import PROFILER
+    t_f = time.perf_counter()
+    src = os.path.join(tmp, "clip.yuv")
+    write_yuv(src, frames[:N_IPPP])
+    size = ["-widthxheight", f"{W}x{H}"]
+
+    def io_args(tag, n):
+        return ["-i", src, "-o", os.path.join(tmp, f"{tag}.265"),
+                "-o-raw", os.path.join(tmp, f"{tag}.yuv"), *size,
+                "-n_frames", str(n)]
+
+    def stream(tag):
+        with open(os.path.join(tmp, f"{tag}.265"), "rb") as f:
+            return f.read()
+
+    sweeps = 0
+    for label, tag, args, n in (("F0 config 2", "f0", F0_ARGS, N_IPPP),
+                                ("F1 config 2 + half-pel + scaling lists + "
+                                 "WPP", "f1", F1_ARGS, N_PATH_F1)):
+        PROFILER.reset()
+        reset_launches()
+        with SerializedSlices() as spy:
+            t = time.perf_counter()
+            rc, out = run_cli(io_args(tag, n) + args
+                              + (["-psnr", "-profile"] if tag == "f0"
+                                 else []))
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+        check(rc == 0, f"{label}: the CLI returned {rc}")
+        launches = dict(LAUNCHES)
+        check(launches["coarse_sweep_sads"] == n - 1,
+              f"{label}: {launches} for {n - 1} P frames")
+        sweeps += launches["coarse_sweep_sads"]
+        efs = spy.frames
+        rec = list(read_yuv(os.path.join(tmp, f"{tag}.yuv"), W, H))
+        check(len(rec) == len(efs) == n, (len(rec), len(efs)))
+        for e, r in zip(efs, rec):
+            check(all(np.array_equal(e.recon[c], r[i])
+                      for i, c in enumerate("yuv")),
+                  f"{label}: -o-raw differs from frame {e.poc}'s recon")
+        mean_psnr = check_frames(efs, frames, ["I"] + ["P"] * (n - 1))
+        data = stream(tag)
+        nals = [x for x in split_annexb(data) if (x[0] >> 1) & 0x3F < 32]
+        check(nals == [nal for _, _, _, nal in spy.slices],
+              f"{label}: the stream's slices are not the serialized ones")
+        summary = [ln for ln in out if " frames in " in ln
+                   or ln.startswith("average PSNR")]
+        log(f"[path F] {label}: the CLI's lines: {' | '.join(summary)}; "
+            f"{n} frames in {t_end - t:.3f} s = {n / (t_end - t):.3f} fps, "
+            f"I frame {spy.emitted[0] - t:.3f} s, P frames "
+            f"{(t_end - spy.emitted[0]) / (n - 1) * 1e3:.1f} ms each; "
+            f"{len(data) * 8 * 25.0 / n / 1e3:.1f} kbps; bits/frame "
+            f"{np.mean([e.bits for e in efs]):.0f}; luma PSNR "
+            f"{mean_psnr:.2f} dB; coarse sweep launches "
+            f"{launches['coarse_sweep_sads']}")
+        if tag == "f0":
+            log("[path F] F0 host scopes (the CLI's -profile):\n"
+                + "\n".join(ln for ln in out if " ms total, " in ln))
+            t = time.perf_counter()
+            for ps, desc, sao, nal in spy.slices:
+                _, p = parse_slice_nal(ps, nal)
+                bad = desc_mismatches(p.d, desc, p.sao, sao)
+                check(bad == [], f"F0: parsed slice differs in {bad}")
+            log(f"[path F] F0: all {len(spy.slices)} slices parsed back "
+                f"by the port's SliceDataParser into the serialized modes, "
+                f"MVs, levels, skip flags and SAO parameters "
+                f"({time.perf_counter() - t:.1f} s)")
+            f0_efs = efs
+        # the first frames through the CLI on the CPU: identical bytes
+        t = time.perf_counter()
+        rc, _ = run_cli(io_args(f"{tag}_cpu", N_PATH_F_CPU) + args
+                        + ["-device", "cpu"])
+        check(rc == 0, f"{label}: the CLI on the CPU returned {rc}")
+        cpu = stream(f"{tag}_cpu")
+        check(data[:len(cpu)] == cpu
+              and data[len(cpu):len(cpu) + 4] == b"\x00\x00\x00\x01",
+              f"CUDA {label} stream != CPU stream")
+        cpu_rec = list(read_yuv(os.path.join(tmp, f"{tag}_cpu.yuv"),
+                                W, H))
+        check(all(np.array_equal(a[i], b[i]) for a, b in zip(cpu_rec, rec)
+                  for i in range(3)), f"CUDA {label} recon != CPU recon")
+        log(f"[path F] {label}: I + 2 P re-encoded by the CLI on the CPU "
+            f"({time.perf_counter() - t:.1f} s): Annex-B bytes and recon "
+            f"identical")
+    # one P frame of F0's configuration under torch.profiler: launches
+    # and device time of the full-pel P program (no sub-pel stage)
+    from homerhevc_tpu_torch import cli
+    from homerhevc_tpu_torch.engine.inter_encoder import TorchInterEncoder
+    from homerhevc_tpu_torch.hevc.headers import ParamSets
+    from homerhevc_tpu_torch.state import reference_from_numpy
+    from homerhevc_tpu_torch.tools.p_frame_ops import count_p_frame
+    cfg0 = cli.config_from_args(cli.build_parser().parse_args(
+        io_args("f0", N_IPPP) + F0_ARGS))
+    pe = TorchInterEncoder(ParamSets.from_config(cfg0), cfg0, device=DEV)
+    p_src, p_ref = frames[2], reference_from_numpy(frames[1], DEV)
+    pe.encode_frame(p_src, p_ref)                           # warm-up
+    ops, compute = count_p_frame(pe, p_src, p_ref)
+    n_k, busy, _ = profile_window("path F F0 P frame (dispatch)",
+                                  lambda: pe.dispatch(p_src, p_ref))
+    log(f"[path F] F0 P frame: {ops} aten ops, {compute} not views; "
+        f"{n_k} kernels, device busy {busy:.2f} ms")
+    # the module entry point in a process of its own, with F1's arguments
+    t = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "homerhevc_tpu_torch.cli",
+         *io_args("f1_module", N_PATH_F1), *F1_ARGS],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, r.stderr[-3000:])
+    mods = [ln.split("|")[-1].strip() for ln in r.stderr.splitlines()
+            if ln.startswith("import time:") and "|" in ln]
+    check("homerhevc_tpu_torch.api" in mods, "no import trace")
+    bad = [m for m in mods if m.split(".")[0] in ("jax", "homerhevc_tpu")]
+    check(not bad, f"python -m homerhevc_tpu_torch.cli imported {bad}")
+    check(stream("f1_module") == stream("f1"),
+          "python -m homerhevc_tpu_torch.cli: bytes differ from the "
+          "in-process run's")
+    log(f"[path F] python -m homerhevc_tpu_torch.cli with F1's arguments "
+        f"({time.perf_counter() - t:.1f} s, the nvcc build of the sweep "
+        f"included): {r.stdout.splitlines()[-1]}; bytes equal to the "
+        f"in-process run's; {len(mods)} modules imported, none of jax or "
+        f"homerhevc_tpu")
+
+    # the twins, each printing its JSON lines
+    def twin(fn, argv):
+        buf = io.StringIO()
+        reset_launches()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            fn(argv)
+        rows = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                if ln.startswith("{")]
+        check(rows, f"{fn.__module__} printed no JSON line")
+        return rows, time.perf_counter() - t, LAUNCHES["coarse_sweep_sads"]
+
+    rows, dt, n_k = twin(measure_rd.main, [
+        "-i", src, "-w", str(W), "-ht", str(H), "-n", str(N_PATH_F_RD),
+        "-cu", "16", "-sao", "-me_prec", "0", "-qps", "32,37"])
+    for row in rows:
+        log(f"[path F] measure_rd: {json.dumps(row)}")
+    kbps8 = sum(e.bits for e in f0_efs[:N_PATH_F_RD]) * 25.0 \
+        / N_PATH_F_RD / 1e3
+    check(rows[0]["label"] == "rd_qp32" and rows[0]["kbps"] == round(
+        kbps8, 1), f"measure_rd at QP 32: {rows[0]['kbps']} kbps, the "
+        f"CLI's first {N_PATH_F_RD} frames {kbps8:.1f}")
+    check(rows[1]["kbps"] < rows[0]["kbps"]
+          and rows[1]["psnr_y"] < rows[0]["psnr_y"], rows)
+    log(f"[path F] measure_rd ({dt:.1f} s, {n_k} sweeps): its QP-32 kbps "
+        f"equals the CLI's over the same {N_PATH_F_RD} frames "
+        f"({kbps8:.1f})")
+    rows, dt, n_k = twin(prof_device.main, ["-probe", "me,impl,fetch",
+                                            "-n", "3"])
+    check([r["probe"] for r in rows] == ["hier_me", "impl_p",
+                                         "dispatch_fetch"], rows)
+    for row in rows:
+        log(f"[path F] prof_device: {json.dumps(row)}")
+    log(f"[path F] prof_device ({dt:.1f} s, {n_k} sweeps)")
+    rows, dt, _ = twin(bench.main, ["--frames", "64", "--in-flight", "32"])
+    check(list(rows[0]) == ["metric", "value", "unit", "vs_baseline"]
+          and rows[0]["value"] > 0, rows)
+    log(f"[path F] bench: {json.dumps(rows[0])} ({dt:.1f} s, 64 frames "
+        f"after two warm batches of 32)")
+    log(f"[path F] took {time.perf_counter() - t_f:.1f} s")
     return sweeps
 
 
@@ -1312,6 +1540,7 @@ def main():
     path_c_launches = phase_path_c(tree_frames[:N_PATH_C])
     path_d_launches, wide_launches = phase_path_d(tree_frames)
     path_e_launches = phase_path_e(frames, tree_frames[:2])
+    path_f_launches = phase_path_f(frames)
     phase_profile(frames)
     phase_tree_stages(tree_frames[0])
     for name in ("jax", "homerhevc_tpu"):
@@ -1321,7 +1550,7 @@ def main():
     for name, row, n in (
             ("coarse_sweep_sads", "720p R=16",
              launches["coarse_sweep_sads"] + sao_launches + path_c_launches
-             + path_d_launches + path_e_launches),
+             + path_d_launches + path_e_launches + path_f_launches),
             ("coarse_sweep_sads_wide", "wide 1088 lines R=24",
              wide_launches)):
         err, ms, plain_ms, bound_ms, bound_by = rows[row]

@@ -80,6 +80,34 @@ def bench_clip(w: int, h: int, n: int, seed: int = 42):
     return out
 
 
+def write_yuv(path, frames) -> None:
+    """Write frames (y, u, v) as raw 8-bit YUV 4:2:0."""
+    with open(path, "wb") as f:
+        for y, u, v in frames:
+            f.write(y.tobytes() + u.tobytes() + v.tobytes())
+
+
+def read_yuv(src, w: int, h: int, n: int | None = None):
+    """Yield up to n frames (y, u, v) of raw 8-bit YUV 4:2:0, one frame
+    read at a time; src is a path or a binary file open at the first
+    frame to read. Stops at the end or at a partial frame."""
+    if not hasattr(src, "read"):
+        with open(src, "rb") as f:
+            yield from read_yuv(f, w, h, n)
+        return
+    fsz = w * h * 3 // 2
+    k = 0
+    while n is None or k < n:
+        buf = src.read(fsz)
+        if len(buf) < fsz:
+            return
+        raw = np.frombuffer(buf, np.uint8)
+        yield (raw[:w * h].reshape(h, w),
+               raw[w * h:w * h * 5 // 4].reshape(h // 2, w // 2),
+               raw[w * h * 5 // 4:].reshape(h // 2, w // 2))
+        k += 1
+
+
 def count_p_frame(enc, src, ref, qp_map=None):
     """(all aten operations, those not views) of one enc.dispatch."""
     return _count(enc, lambda: enc.dispatch(src, ref, qp_map=qp_map))

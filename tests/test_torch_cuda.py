@@ -3,8 +3,9 @@ kernel (its 8-bit and wide-source entry points) against its plain
 version, the wrapper's checks on CUDA tensors, and the encoders (flat
 CU16 I and P, the intra CU tree, device SAO, the CU-tree P program with
 the FAR level and intra-in-P, the bi-capable B program, the
-generalized-B chain, the intra and P programs with per-CTB QP maps) and
-the ops they add on the card against the same code on the CPU. They
+generalized-B chain, the intra and P programs with per-CTB QP maps, the
+CLI) and the ops they add on the card against the same code on the CPU,
+and the port's parser on a stream coded on the card. They
 skip here with a reason. This file imports no jax, so on the card's machine it runs
 without the JAX package's conftest:
 
@@ -379,3 +380,48 @@ def test_p_program_with_map_on_card_matches_cpu(card, cu):
     for a, b in zip(crec, grec):
         assert np.array_equal(a, b)
     _assert_sao_equal(cd.sao_params, gd.sao_params)
+
+
+def test_cli_on_card_matches_cpu(card, tmp_path):
+    """The CLI at 128x64 (IPPP CU16 with half-pel ME, scaling lists and
+    WPP): the card's stream and recon equal the CPU's byte for byte; the
+    sweep runs once per P frame on the card."""
+    from homerhevc_tpu_torch import cli
+    from homerhevc_tpu_torch.tools.p_frame_ops import bench_clip, write_yuv
+    write_yuv(tmp_path / "in.yuv", bench_clip(128, 64, 4, 21))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = LAUNCHES["coarse_sweep_sads"]
+        assert cli.main([
+            "-i", str(tmp_path / "in.yuv"), "-o", str(tmp_path / f"{dev}.265"),
+            "-o-raw", str(tmp_path / f"{dev}.yuv"), "-widthxheight",
+            "128x64", "-n_frames", "4", "-motion_estimation_precision", "1",
+            "-scaling_lists", "1", "-wpp", "1", "-device", dev]) == 0
+        assert LAUNCHES["coarse_sweep_sads"] - before == (3 if dev == "cuda"
+                                                          else 0)
+        out[dev] = ((tmp_path / f"{dev}.265").read_bytes(),
+                    (tmp_path / f"{dev}.yuv").read_bytes())
+    assert out["cuda"] == out["cpu"]
+
+
+def test_parser_round_trip_of_a_card_stream(card):
+    """Every slice of an IPPP CU16 stream with SAO and WPP coded on the
+    card parses back into the FrameDesc and SAO parameters that were
+    serialized."""
+    from homerhevc_tpu_torch.api import Encoder
+    from homerhevc_tpu_torch.hevc.parse import (SerializedSlices,
+                                                desc_mismatches,
+                                                parse_slice_nal,
+                                                split_annexb)
+    from homerhevc_tpu_torch.tools.p_frame_ops import bench_clip
+    enc = Encoder(EncoderConfig(width=128, height=64, qp=32, cu_size=16,
+                                gop_size=1, sao=True, wpp=True), device=card)
+    with SerializedSlices() as spy:
+        efs = [e for f in bench_clip(128, 64, 3, 22) for e in enc.encode(*f)]
+        efs += list(enc.flush())
+    nals = [n for n in split_annexb(b"".join(e.annex_b() for e in efs))
+            if (n[0] >> 1) & 0x3F < 32]
+    assert nals == [nal for *_, nal in spy.slices] and len(nals) == 3
+    for ps, desc, sao, nal in spy.slices:
+        _, p = parse_slice_nal(ps, nal)
+        assert desc_mismatches(p.d, desc, p.sao, sao) == []

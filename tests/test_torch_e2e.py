@@ -15,6 +15,7 @@ from homerhevc_tpu.api import Encoder as JaxEncoder
 from homerhevc_tpu.config import EncoderConfig as JaxConfig
 from homerhevc_tpu_torch.api import Encoder as TorchEncoder
 from homerhevc_tpu_torch.config import EncoderConfig
+from homerhevc_tpu_torch.hevc.parse import SerializedSlices
 from tests.conftest import decode_annexb, make_yuv
 
 torch.set_num_threads(1)    # one intra-op thread per test worker
@@ -59,15 +60,9 @@ def test_torch_stream_matches_jax_and_decodes(gop, batch, sao, tmp_path):
                      noise=25 if sao else 2)
     want = _encode(JaxEncoder(JaxConfig(**kw)), frames)
     enc = TorchEncoder(EncoderConfig(**kw), device="cpu")
-    pipe = enc._pipeline
-    seen = []
-    serialize = pipe._serialize_slice
-
-    def spy(desc, slice_type, nal_type, qp, sao_params=None, **refs):
-        seen.append(sao_params)
-        return serialize(desc, slice_type, nal_type, qp, sao_params, **refs)
-    pipe._serialize_slice = spy
-    got = _encode(enc, frames)
+    with SerializedSlices() as spy:
+        got = _encode(enc, frames)
+    seen = [sao for _, _, sao, _ in spy.slices]
     assert [e.frame_type for e in got] == \
         (["I", "P", "P", "P"] if gop else ["I"] * 4)
     if sao:
@@ -79,6 +74,33 @@ def test_torch_stream_matches_jax_and_decodes(gop, batch, sao, tmp_path):
     stream = b"".join(e.annex_b() for e in got)
     assert stream == b"".join(e.annex_b() for e in want)
     path = tmp_path / "port.265"
+    path.write_bytes(stream)
+    dec = decode_annexb(path)
+    assert len(dec) == 4
+    for d, e in zip(dec, got):
+        assert np.array_equal(d, e.recon["y"])
+
+
+def test_merge_rd_off_stream_matches_jax_and_decodes(tmp_path,
+                                                     monkeypatch):
+    """merge_rd_device=False (the P program without its merge-RD stage,
+    a knob no CLI flag sets): the IPPP CU16 stream equals the JAX
+    Encoder's byte for byte and decodes to the port's recon."""
+    from tests.torch_golden import interpret_sweep
+    interpret_sweep(monkeypatch)
+    w, h = 128, 64
+    kw = dict(width=w, height=h, cu_size=16, gop_size=1, qp=32,
+              sign_hiding=True, deblocking=True, sao=False,
+              merge_rd_device=False)
+    frames = _frames(np.random.RandomState(16), w, h, 4)
+    want = _encode(JaxEncoder(JaxConfig(**kw)), frames)
+    enc = TorchEncoder(EncoderConfig(**kw), device="cpu")
+    got = _encode(enc, frames)
+    assert not enc._pipeline._inter_enc.merge_rd
+    assert [e.frame_type for e in got] == ["I", "P", "P", "P"]
+    stream = b"".join(e.annex_b() for e in got)
+    assert stream == b"".join(e.annex_b() for e in want)
+    path = tmp_path / "merge_rd_off.265"
     path.write_bytes(stream)
     dec = decode_annexb(path)
     assert len(dec) == 4

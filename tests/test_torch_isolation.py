@@ -1,5 +1,7 @@
-"""The port stands alone: no module of homerhevc_tpu_torch and no line of
-chip_smoke.py imports jax or the JAX package; a 64x64 I + P encode, an
+"""The port stands alone: no module of homerhevc_tpu_torch (the CLI, the
+parser and the tools included) and no line of chip_smoke.py imports jax
+or the JAX package, nor does a run of `python -m
+homerhevc_tpu_torch.cli`; a 64x64 I + P encode, an
 intra CU-tree encode, a CTU-32 IPPP encode, an IBP encode and a
 generalized-B encode, all with SAO, run with both blocked; every
 configuration outside the port's slices raises NotImplementedError when
@@ -41,9 +43,17 @@ def _sources():
     yield os.path.join(_ROOT, "chip_smoke.py")
 
 
+_ENTRY_POINTS = ("cli.py", "hevc/parse.py", "hevc/cabac_dec.py",
+                 "tools/measure_rd.py", "tools/prof_device.py",
+                 "tools/bench.py")
+
+
 def test_no_source_imports_jax_or_the_jax_package():
     found = []
-    for path in _sources():
+    paths = list(_sources())
+    for f in _ENTRY_POINTS:
+        assert os.path.join(_ROOT, "homerhevc_tpu_torch", f) in paths, f
+    for path in paths:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
             names = []
@@ -107,6 +117,59 @@ def test_port_encodes_with_jax_and_the_jax_package_blocked():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().endswith("ok")
+
+
+def _cli(tmp_path, *extra):
+    """python -X importtime -m homerhevc_tpu_torch.cli on a 64x64 clip of
+    two frames with -device cpu: the completed process and the modules it
+    imported."""
+    yy, xx = np.mgrid[0:64, 0:64]
+    y = (100 + 60 * np.sin(xx / 5.0) + yy).astype(np.uint8)
+    c = np.full((32, 32), 128, np.uint8)
+    (tmp_path / "in.yuv").write_bytes(
+        b"".join(p.tobytes() for t in range(2)
+                 for p in (np.roll(y, 2 * t, 1), c, c)))
+    env = dict(os.environ, PYTHONPATH=_ROOT, OMP_NUM_THREADS="1")
+    r = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "homerhevc_tpu_torch.cli",
+         "-i", str(tmp_path / "in.yuv"), "-o", str(tmp_path / "out.265"),
+         "-o-raw", str(tmp_path / "rec.yuv"), "-widthxheight", "64x64",
+         "-device", "cpu", *extra],
+        cwd=_ROOT, env=env, capture_output=True, text=True, timeout=300)
+    mods = [ln.split("|")[-1].strip() for ln in r.stderr.splitlines()
+            if ln.startswith("import time:") and "|" in ln]
+    return r, mods
+
+
+def test_cli_module_runs_without_jax(tmp_path):
+    """python -m homerhevc_tpu_torch.cli encodes on the CPU, prints the JAX
+    CLI's summary line, and imports no module of jax or the JAX
+    package."""
+    r, mods = _cli(tmp_path, "-sao", "0")
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.splitlines()[-1].startswith("2 frames in ")
+    assert "homerhevc_tpu_torch.api" in mods
+    assert not [m for m in mods if _forbidden(m)]
+    dec = decode_annexb(tmp_path / "out.265")
+    rec = np.fromfile(tmp_path / "rec.yuv", np.uint8).reshape(2, 96, 64)
+    assert len(dec) == 2
+    for d, e in zip(dec, rec):
+        assert np.array_equal(d, e[:64])
+
+
+def test_cli_refuses_an_unported_config_before_any_output(tmp_path):
+    """RD_FULL with the intra CU tree (the JAX package's golden path):
+    the CLI exits non-zero with the NotImplementedError naming Queue 1
+    item 7 on stderr, and writes no stream and no recon. (At CU16 the JAX
+    package codes -rd_mode 1 on its device path, which has no RD_FULL,
+    and so does the port.)"""
+    r, _ = _cli(tmp_path, "-rd_mode", "1", "-cu_size", "32", "-intra_rdo",
+                "1")
+    assert r.returncode != 0
+    assert "NotImplementedError" in r.stderr
+    assert "Queue 1 item 7" in r.stderr
+    assert not (tmp_path / "out.265").exists()
+    assert not (tmp_path / "rec.yuv").exists()
 
 
 _BASE = dict(width=64, height=64, cu_size=16, gop_size=1, qp=32, sao=False)
