@@ -9,7 +9,8 @@ passed):
   2. the coarse SAD sweep kernel's two entry points against their plain
      PyTorch version on the card, bit-exact: the 8-bit source at the 720p
      slice shapes (m=8, R=16 and R=24), at the 1080p shapes of paths C and
-     D (1088 coded lines: gh 68, gw 120, R=16 and R=24; and gh 72), on
+     D (1088 coded lines: gh 68, gw 120, R=16 and R=24; and gh 72), at
+     path G1's (416x240 padded to 256 lines: gh 16, gw 26, R=16), on
      ragged grids, at m=16 and at the 0/255 extremes; the wide source (the
      B program's bi target, in [-255, 510]) at 720p and 1088 lines R=24,
      ragged, at m=16 and at its extremes; times from CUDA events with the
@@ -24,7 +25,10 @@ passed):
      JAX package's Encoder at 128x96 (IBP at CTU 32 with bi anchors, IBP
      at CTU 64 with uni-L0 B frames, generalized-B at CTU 32 with two
      references) and of its AQ streams (96x64 all-intra AQ, 3 frames in
-     flight; 128x64 IPPP AQ + row-RC under CBR; tests/test_torch_aq.py);
+     flight; 128x64 IPPP AQ + row-RC under CBR; tests/test_torch_aq.py),
+     and of its host intra streams at 128x64 (IPPP CTU 32 with a
+     fixed-CU32 I frame, RD_FULL all-intra CTU 32, all-intra CU16 AQ with
+     deblocking; tests/test_torch_digests.py);
   4. the main paths through homerhevc_tpu_torch.api.Encoder, each with the
      kernel launch counts set to 0 just before and read just after it:
      720p IPPP CU16 (1 I + 15 P; its first two frames re-encoded on the
@@ -55,7 +59,16 @@ passed):
      F1 with half-pel ME, scaling lists and WPP (1 I + 7 P, I + 2 P equal
      on the CPU), `python -m homerhevc_tpu_torch.cli` in a subprocess
      (the same bytes, no jax imported), and the measure_rd, prof_device
-     and bench twins; neither jax nor homerhevc_tpu may be imported;
+     and bench twins; path G, the host intra programs (slice 7), each I
+     frame on the host and its P frames on the device: G0 1080p (1088
+     coded lines) IPPP CTU 64 without intra_rdo, deblocking + SAO (1 I +
+     7 P, I + first P equal on the CPU, CU64s in the P frames), G1 RD_FULL
+     416x240 IPPP CTU 32 (1 I + 3 P, NxN PUs and TU splits, I + P equal on
+     the CPU), G2 720p all-intra CU16 AQ with deblocking (2 frames, every
+     slice parsed back, the decoder's QPs those deblocking read), G3 720p
+     IPPP CU32 AQ + row-RC CBR 1250 kbps, deblocking off (1 I + 7 P, I +
+     2 P equal on the CPU), the sweep once per P frame; neither jax nor
+     homerhevc_tpu may be imported;
   5. where the time goes: one I and one P frame of slice 1, a P frame
      with SAO and two CTU-64 P frames of path C under torch.profiler, and
      the aten ops of a path-C P frame; one bi frame of path D counted by
@@ -150,6 +163,26 @@ AQ_CELLS = {
                                          bitrate_mode=1,      # CBR
                                          bitrate_kbps=300), 5),
 }
+# the host intra cells: streams of the AQ cells' frames (the bench clip
+# with a flat band over the top quarter) at 128x64 through the Encoder, QP
+# 32, sign hiding, deblocking: IPPP at CTU 32 without intra_rdo (the host
+# fixed-CU32 I frame, then 2 P frames of the device P program, with SAO),
+# RD_FULL all-intra at CTU 32 (the host tree with NxN PUs, TU splits and
+# the chroma RDO, with SAO; 2 frames) and CU16 all-intra with AQ (strength
+# 2) and deblocking (the decoder-view QP map; 2 frames); digests of the
+# JAX package's Encoder on the CPU, which tests/test_torch_digests.py
+# computes and holds to HOST_DIGESTS
+HOST_CFG = dict(width=128, height=64, qp=32, sign_hiding=True,
+                deblocking=True, intra_period=0,
+                reinit_gop_on_scene_change=False)
+HOST_CELLS = {
+    "IPPP CTU 32 host I": (dict(cu_size=32, gop_size=1, sao=True), 3),
+    "RD_FULL all-intra CTU 32": (dict(cu_size=32, gop_size=0,
+                                      intra_rdo=True, rd_mode=1,
+                                      sao=True), 2),
+    "all-intra CU16 AQ deblock": (dict(cu_size=16, gop_size=0,
+                                       aq_strength=2.0, sao=False), 2),
+}
 GOLDEN_DIGESTS = {
     "I deblock=0": (
         "75cc9191de8a647a6a5b50d8b8a68a91c032bcd80b960d6c7e38399cab84f7fe",
@@ -194,6 +227,17 @@ AQ_DIGESTS = {
     "IPPP AQ + row-RC CBR 128x64": (
         "5bd7fc66d0c1e4140f9663d8d845e73d12484758f775c85dfe4671cf3a8e25ba",
         "0bd0bb04b5d52cb470ac2b24efb2f3424b7f81f4cf2396ef390aa650d50f1530"),
+}
+HOST_DIGESTS = {
+    "IPPP CTU 32 host I": (
+        "e5859a0a0d1053cb1207fa6f66605c9529277c6b782a85cc3e61295c216855c1",
+        "61d0c446abe04a24cbe9c639aa8a3dda605a172f2459e6a894e5315283724e99"),
+    "RD_FULL all-intra CTU 32": (
+        "04d6e32638e87f64a62b144ae58b20d4ff70284872f2b040138b829d9ca7e9de",
+        "28e536ec680a73814f63f266b5a42583be30057c7f8249c0298f6a4a380eedb9"),
+    "all-intra CU16 AQ deblock": (
+        "3837883d411ca007f473eca3af172a86210090d80e44866bd1a9b7c771ae9f82",
+        "21636556e29bab6df6df69fecc87132f6c7d7f0cebf09cfcf2abae816d468777"),
 }
 
 
@@ -329,10 +373,12 @@ def sweep_bound(sd, rp, R, m, extra_bytes=0):
             "bytes" if bytes_ms >= ops_ms else "operations", ops_ms)
 
 
-def phase_kernel(frames, frames_1152):
+def phase_kernel(frames, frames_1152, frames_g1):
     """The sweep kernel's entry points against their plain version (frames:
     the 720p clip; frames_1152: the clip at 1920x1152, cut to the 1088
-    coded lines of paths C and D (gh 68) and to gh 72): the 8-bit source
+    coded lines of paths C and D (gh 68) and to gh 72; frames_g1: path
+    G1's class-D clip, edge-padded to its 256 coded lines as the pipeline
+    pads it, gh 16 and gw 26): the 8-bit source
     of the P program and of the B program's searches against the source,
     and the wide source (the bi target, in [-255, 510]) of the B program's
     list-1 search. The wide rows time the kernel alone from its inputs
@@ -349,6 +395,7 @@ def phase_kernel(frames, frames_1152):
              ("1088 lines R=16", frames_1152, 16, 8, 68, 120, True, False),
              ("1088 lines R=24", frames_1152, 24, 8, 68, 120, True, False),
              ("1152 lines R=16", frames_1152, 16, 8, 72, 120, True, False),
+             ("G1 256x416 R=16", frames_g1, 16, 8, 16, 26, True, False),
              ("wide 720p R=24", frames, 24, 8, None, None, True, True),
              ("wide 1088 lines R=24", frames_1152, 24, 8, 68, 120, True,
               True),
@@ -600,6 +647,18 @@ def aq_stream_digests(encode):
     return out
 
 
+def host_stream_digests(encode):
+    """Digests of the host intra cells' streams, encode as in
+    b_stream_digests."""
+    out = {}
+    for name, (cell, n) in HOST_CELLS.items():
+        kw = {**HOST_CFG, **cell}
+        efs = encode(kw, aq_frames(n, kw["width"], kw["height"]))
+        out[name] = digests(b"".join(e.annex_b() for e in efs),
+                            [e.recon[c] for e in efs for c in "yuv"])
+    return out
+
+
 def b_stream_digests(encode):
     """Digests of the B cells' streams: encode(kw, frames) returns the
     EncodedFrames of the configuration kw (keyword arguments of an
@@ -620,7 +679,9 @@ def phase_digests():
     got = port_digests(DEV)
     got.update(b_stream_digests(encode))
     got.update(aq_stream_digests(encode))
-    for k, want in {**GOLDEN_DIGESTS, **B_DIGESTS, **AQ_DIGESTS}.items():
+    got.update(host_stream_digests(encode))
+    for k, want in {**GOLDEN_DIGESTS, **B_DIGESTS, **AQ_DIGESTS,
+                    **HOST_DIGESTS}.items():
         check(got[k] == want, f"{k}: port {got[k]} != golden {want}")
     log("[parity] 128x64 on the card: I frame (deblock off/on), P frame, "
         "intra tree (CU32 / CU64 deblock, CU32 deblock+SAO) and IPPP tree "
@@ -629,7 +690,9 @@ def phase_digests():
         "128x96 through api.Encoder: IBP CTU 32 with bi anchors, IBP CTU "
         "64 with uni-L0 B, generalized-B CTU 32 with two references; "
         "96x64 all-intra AQ and 128x64 IPPP AQ + row-RC under CBR == "
-        "the JAX Encoder's digests")
+        "the JAX Encoder's digests; 128x64 host intra streams (IPPP CTU "
+        "32 with a fixed-CU32 I frame, RD_FULL all-intra CTU 32, all-intra "
+        "CU16 AQ with deblocking) == the JAX Encoder's digests")
 
 
 def encode_all(enc, frames):
@@ -1401,6 +1464,217 @@ def _path_f(frames, tmp):
     return sweeps
 
 
+N_PATH_G = 8                  # G0, G3: 1 I + 7 P
+N_PATH_G1 = 4                 # G1: 1 I + 3 P
+N_PATH_G2 = 2                 # G2: two all-intra frames
+N_PATH_G_CPU = (2, 2, 3)      # G0's, G1's I + P, G3's I + 2 P on the CPU
+W_G1, H_G1 = 416, 240         # G1: the HEVC class-D size
+H_G1_CODED = 256              # G1's coded lines at CTU 32
+
+
+def host_ippp_config(w, h, cu, **kw):
+    """Path G's IPPP configurations: QP 32, sign hiding, deblocking and SAO,
+    one IDR (kw: each cell's changes)."""
+    from homerhevc_tpu_torch.config import EncoderConfig
+    return EncoderConfig(**{**dict(
+        width=w, height=h, cu_size=cu, gop_size=1, qp=32, intra_period=0,
+        sign_hiding=True, deblocking=True, sao=True,
+        reinit_gop_on_scene_change=False), **kw})
+
+
+def run_path_g(label, cfg, frames, n_cpu):
+    """Encode frames with cfg on the card (1 I + P frames; the I frame on
+    the host programs, no device intra encoder built), the sweep launched
+    once per P frame; the first n_cpu frames re-encoded on the CPU give
+    the same bytes; one P frame under torch.profiler. Logs fps, the I
+    frame's host seconds (analyze_intra_host), ms per P frame, launches
+    and device busy per P frame. Returns (EncodedFrames, FrameDescs,
+    pipeline, sweep launches)."""
+    from homerhevc_tpu_torch.api import Encoder
+    from homerhevc_tpu_torch.device import LAUNCHES, reset_launches
+    from homerhevc_tpu_torch.utils.profiler import PROFILER
+    enc = Encoder(cfg)
+    pipe = enc._pipeline
+    descs, emitted = spy_emit(pipe)
+    PROFILER.reset()
+    reset_launches()
+    t = time.perf_counter()
+    efs = encode_all(enc, frames)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = dict(LAUNCHES)
+    n_p = len(frames) - 1
+    check(launches["coarse_sweep_sads"] == n_p, launches)
+    check(pipe._intra_enc is None, "a device intra encoder was built")
+    host_s = PROFILER.totals["analyze_intra_host"]
+    check(PROFILER.counts["analyze_intra_host"] == 1, PROFILER.counts)
+    floor = 18.0 if cfg.bitrate_mode else 25.0
+    mean_psnr = check_frames(efs, frames, ["I"] + ["P"] * n_p, floor)
+    pe = pipe._inter()
+    src = pipe._pad_frame(*frames[-1])
+    ref = pe.last_dev
+    qp_map = pipe._inter_qp_map(src[0], cfg.qp)
+    n_k, busy, wall = profile_window(
+        f"path G {label}, one P frame (dispatch)",
+        lambda: pe.dispatch(src, ref, qp_map=qp_map))
+    bits = [e.bits for e in efs]
+    log(f"[path G] {label}: {len(frames)} frames (1 I + {n_p} P) in "
+        f"{t_end - t:.3f} s = {len(frames) / (t_end - t):.4f} fps; I frame "
+        f"{emitted[0] - t:.3f} s ({host_s:.3f} s analyze_intra_host, "
+        f"{PROFILER.totals['sao']:.3f} s host SAO); P frames "
+        f"{(t_end - emitted[0]) / n_p * 1e3:.1f} ms each; one P frame "
+        f"{n_k} kernels, device busy {busy:.2f} ms; bits/frame "
+        f"{np.mean(bits):.0f} (I {bits[0]}); luma PSNR {mean_psnr:.2f} dB; "
+        f"coarse sweep launches {launches['coarse_sweep_sads']}")
+    log(f"[path G] {label} host scopes:\n" + PROFILER.report())
+    t = time.perf_counter()
+    cpu = first_frames(Encoder(cfg, device="cpu"), frames, n_cpu)
+    check(b"".join(e.annex_b() for e in cpu)
+          == b"".join(e.annex_b() for e in efs[:n_cpu]),
+          f"CUDA path G {label} stream != CPU stream")
+    log(f"[path G] {label}: the first {n_cpu} frames re-encoded on the "
+        f"CPU (plain path, {time.perf_counter() - t:.1f} s): Annex-B bytes "
+        f"identical")
+    return efs, descs, pipe, launches["coarse_sweep_sads"]
+
+
+def g1_frames(n):
+    """G1's clip: the bench clip at 416x240 with a 64x64 patch of
+    concentric rings in its top-left corner, whose locally straight edges
+    want 4x4 PUs."""
+    g1 = bench_frames(n, w=W_G1, h=H_G1)
+    yy, xx = np.mgrid[0:64, 0:64]
+    rings = np.clip(60 + 60 * np.sin(0.8 * np.hypot(xx - 32.0, yy - 32.0)),
+                    0, 255).astype(np.uint8)
+    for y, _, _ in g1:
+        y[:64, :64] = rings
+    return g1
+
+
+def phase_path_g(frames, frames_1080, frames_g1):
+    """Path G on the card: the host intra programs (slice 7), each I frame
+    on the host and the P frames on the device P programs (the card is
+    warm from the earlier paths). G0: 1080p (1088 coded lines) IPPP at
+    CTU 64 without intra_rdo, deblocking and SAO (fixed-CU32 host I frame,
+    the CU64 tree P program), 1 I + 7 P, I + first P equal on the CPU,
+    some CTBs of the P frames coded as CU64. G1: RD_FULL, 416x240 (256
+    coded lines) IPPP at CTU 32 with intra_rdo (the host RD_FULL tree:
+    NxN 4x4 PUs and TU splits present; frames_g1, g1_frames' clip),
+    1 I + 3 P. G2: 720p all-intra CU16 with AQ (strength 2) and
+    deblocking, 2 frames in flight (the host program, deblocking at the
+    decoder-view QP map), on the AQ cells' frames (a flat band over the
+    top quarter) with a flat left column too, whose quantization groups
+    below the band code nothing and so keep the QP predicted from the row
+    above: some CTBs away from their slice QP, some units deblocked at
+    the predictor's QP, no kernel launched, every slice parsed back into
+    what was serialized and the parsed decoder-view QPs equal to those
+    deblocking read. G3: 720p IPPP CU32 without intra_rdo, AQ + row-RC,
+    deblocking off, CBR 1250 kbps (the host I frame with its map, the
+    CU32 P program with a map per P frame, inline), 1 I + 7 P, I + 2 P
+    equal on the CPU. G1's I + first P are equal on the CPU too. Returns
+    the sweep's launches."""
+    from homerhevc_tpu_torch.api import Encoder
+    from homerhevc_tpu_torch.config import BitrateMode, EncoderConfig
+    from homerhevc_tpu_torch.device import LAUNCHES, reset_launches
+    from homerhevc_tpu_torch.hevc.deblock import decoder_qp_map8
+    from homerhevc_tpu_torch.hevc.parse import (SerializedSlices,
+                                                desc_mismatches,
+                                                parse_slice_nal)
+    from homerhevc_tpu_torch.utils.profiler import PROFILER
+    t_g = time.perf_counter()
+    sweeps = 0
+    # G0
+    efs, descs, pipe, n = run_path_g(
+        "G0 1080p IPPP CTU 64 fixed-CU32 host I",
+        host_ippp_config(W_TREE, H_TREE, 64), frames_1080[:N_PATH_G],
+        N_PATH_G_CPU[0])
+    sweeps += n
+    check(pipe.cfg.height == -(-H_TREE // 64) * 64, pipe.cfg.height)
+    cu32, cu64 = tree_share(descs[1:], pipe.ps)
+    check(cu64 > 0, "no CTB of the P frames coded as one CU64")
+    log(f"[path G] G0: {pipe.cfg.height} coded lines; CTB32 areas of the "
+        f"P frames coded as one CU32 "
+        f"{100 * cu32:.1f}%, inside a CU64 {100 * cu64:.1f}%")
+    # G1
+    efs, descs, pipe, n = run_path_g(
+        "G1 416x240 IPPP CTU 32 RD_FULL host tree",
+        host_ippp_config(W_G1, H_G1, 32, intra_rdo=True, rd_mode=1),
+        frames_g1,
+        N_PATH_G_CPU[1])
+    sweeps += n
+    check(pipe.cfg.height == H_G1_CODED, pipe.cfg.height)
+    nxn = float(np.mean(descs[0].part_nxn))
+    split = float(np.mean(descs[0].tr_depth > 0))
+    check(nxn > 0 and split > 0, "no NxN PU or TU split in the I frame")
+    log(f"[path G] G1: {pipe.cfg.height} coded lines; the I frame's 8x8 "
+        f"units in NxN CUs {100 * nxn:.1f}%, "
+        f"under a TU split {100 * split:.1f}%")
+    # G2
+    cfg2 = EncoderConfig(width=W, height=H, cu_size=16, gop_size=0, qp=32,
+                         sign_hiding=True, deblocking=True, sao=False,
+                         aq_strength=2.0, num_frames_in_flight=N_PATH_G2)
+    g2 = aq_frames(N_PATH_G2, W, H)
+    for y, u, v in g2:
+        y[:, :64] = 90
+        for c in (u, v):
+            c[:H // 8] = 128
+            c[:, :32] = 128
+    enc2 = Encoder(cfg2)
+    PROFILER.reset()
+    reset_launches()
+    with SerializedSlices() as spy:
+        t = time.perf_counter()
+        efs2 = encode_all(enc2, g2)
+        torch.cuda.synchronize()
+        dt2 = time.perf_counter() - t
+    check(all(v == 0 for v in LAUNCHES.values()), dict(LAUNCHES))
+    check(enc2._pipeline._intra_enc is None,
+          "a device intra encoder was built")
+    mean2 = check_frames(efs2, g2, ["I"] * N_PATH_G2)
+    share2 = qp_off_share([d for _, d, _, _ in spy.slices], efs2)
+    check(share2 > 0, "no CTB coded away from its slice QP")
+    t = time.perf_counter()
+    uncoded = 0
+    for ps, desc, sao, nal in spy.slices:
+        _, p = parse_slice_nal(ps, nal)
+        bad = desc_mismatches(p.d, desc, p.sao, sao)
+        check(not bad, f"G2: the parsed slice differs in {bad}")
+        qp8 = decoder_qp_map8(desc, ps, cfg2.qp, wpp=ps.wpp)
+        check(np.array_equal(p.d.qp_map.astype(np.int32), qp8),
+              "G2: the decoder's QPs differ from those deblocking read")
+        uncoded += int((qp8 != desc.qp_map).sum())
+    check(uncoded > 0, "G2: no unit deblocked at its predictor's QP")
+    log(f"[path G] G2 720p all-intra CU16 AQ + deblocking qp32 "
+        f"({N_PATH_G2} frames in flight): {N_PATH_G2} frames in "
+        f"{dt2:.3f} s = {N_PATH_G2 / dt2:.4f} fps; I frames "
+        f"{PROFILER.totals['analyze_intra_host'] / N_PATH_G2:.3f} s each "
+        f"analyze_intra_host; bits/frame "
+        f"{np.mean([e.bits for e in efs2]):.0f}; luma PSNR {mean2:.2f} dB; "
+        f"CTBs away from their slice QP {100 * share2:.1f}%; 8x8 units "
+        f"deblocked at the predictor's QP, not their map's: {uncoded}; "
+        f"both slices parsed back ({time.perf_counter() - t:.1f} s): "
+        f"modes, levels and the decoder's QPs equal")
+    # G3
+    cfg3 = host_ippp_config(W, H, 32, aq_strength=2.0, rc_ctu=True,
+                            deblocking=False, bitrate_mode=BitrateMode.CBR,
+                            bitrate_kbps=1250, vbv_size=1.0)
+    efs, descs, pipe, n = run_path_g(
+        "G3 720p IPPP CU32 host I + AQ + row-RC CBR", cfg3,
+        frames[:N_PATH_G], N_PATH_G_CPU[2])
+    sweeps += n
+    share = qp_off_share(descs, efs)
+    check(share > 0 and all(d.qp_map is not None for d in descs),
+          "G3: a frame without its map")
+    kbps = float(np.sum([e.bits for e in efs])) / N_PATH_G \
+        * cfg3.frame_rate / 1e3
+    log(f"[path G] G3: {kbps:.1f} kbps over the clip against "
+        f"{cfg3.bitrate_kbps} ({100 * kbps / cfg3.bitrate_kbps:.1f}%); "
+        f"slice QPs {[e.avg_qp for e in efs]}; CTBs away from their slice "
+        f"QP {100 * share:.1f}%")
+    log(f"[path G] G0-G3 took {time.perf_counter() - t_g:.1f} s")
+    return sweeps
+
+
 def phase_tree_stages(frame):
     """Where path A's time goes: one 1080p CU32 tree frame split by stage
     (decide, wavefront, deblock, SAO, pack), first timed (the card
@@ -1531,7 +1805,10 @@ def main():
         f"{smi('name,power.limit,clocks.max.sm')}")
     frames = bench_frames(N_IPPP)
     phase_build()
-    rows = phase_kernel(frames, bench_frames(2, w=W_TREE, h=1152))
+    g1 = g1_frames(N_PATH_G1)
+    g1_coded = [(np.pad(y, ((0, H_G1_CODED - H_G1), (0, 0)), mode="edge"),
+                 u, v) for y, u, v in g1[:2]]
+    rows = phase_kernel(frames, bench_frames(2, w=W_TREE, h=1152), g1_coded)
     phase_digests()
     launches = phase_main_path(frames)
     tree_frames = bench_frames(N_PATH_D, w=W_TREE, h=H_TREE)
@@ -1541,6 +1818,7 @@ def main():
     path_d_launches, wide_launches = phase_path_d(tree_frames)
     path_e_launches = phase_path_e(frames, tree_frames[:2])
     path_f_launches = phase_path_f(frames)
+    path_g_launches = phase_path_g(frames, tree_frames[:N_PATH_G], g1)
     phase_profile(frames)
     phase_tree_stages(tree_frames[0])
     for name in ("jax", "homerhevc_tpu"):
@@ -1550,7 +1828,8 @@ def main():
     for name, row, n in (
             ("coarse_sweep_sads", "720p R=16",
              launches["coarse_sweep_sads"] + sao_launches + path_c_launches
-             + path_d_launches + path_e_launches + path_f_launches),
+             + path_d_launches + path_e_launches + path_f_launches
+             + path_g_launches),
             ("coarse_sweep_sads_wide", "wide 1088 lines R=24",
              wide_launches)):
         err, ms, plain_ms, bound_ms, bound_by = rows[row]

@@ -20,9 +20,6 @@ Bit-exact to the JAX programs and to golden encode_inter_frame
 The coarse sweep runs the hand-written CUDA kernel on a CUDA device
 (ops/me_sad.py: the 8-bit entry point for source planes, the wide one for
 the bi target); there is no gate at the call site.
-
-Not ported yet (the pipeline refuses such configs, engine/pipeline.py
-unported): per-CTB QP maps (AQ, row-RC).
 """
 
 from __future__ import annotations

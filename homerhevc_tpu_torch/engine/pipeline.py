@@ -2,6 +2,17 @@
 encoders, SAO, NAL assembly. Written from homerhevc_tpu/engine/pipeline.py
 EncoderPipeline, restricted to the configurations the port covers:
 
+  - I frames of every configuration: on the device programs below where
+    the JAX package runs its own (intra_device_ok, the twin of its
+    _tpu_ok), else on the host programs it runs there
+    (_analyze_intra_host: hevc/intra_frame.py at a fixed CU size with the
+    per-CTB AQ map, hevc/intra_tree.py's tree with intra_rdo at CTU 32 /
+    64 and RD_FULL, hevc/deblock.py with the decoder-view QP map), chosen
+    by configuration alone: CU32 / CU64 without intra_rdo, intra_rdo at
+    CU16, RD_FULL, per-CTB QP maps with deblocking on or with the tree.
+    Their P and B frames run on the device P programs (inter_device_ok,
+    the twin of _tpu_inter_ok), each predicting from the host recon as SAO
+    filtered it, uploaded once;
   - all-intra CU16 (gop_size 0): frames are batched num_frames_in_flight
     at a time, with the upload / dispatch / background fetch pipeline;
   - all-intra CU32 / CU64 with intra_rdo (gop_size 0, the fast decision,
@@ -23,11 +34,12 @@ EncoderPipeline, restricted to the configurations the port covers:
     alone. Search range 24.
 
 Per-CTB QP maps (AQ, and row-RC under CBR / VBR; cu_qp_delta with the
-quantization group a CTB) run at CU16 without intra_rdo and with
-deblocking off, all-intra or IPPP, where the JAX package runs them on its
-device: an AQ map per I frame (the batched path carries one per frame),
-the AQ map plus the row-RC offsets per P frame, each P frame emitted
-before the next is dispatched.
+quantization group a CTB): an AQ map per I frame (the batched CU16 path
+carries one per frame; the host tree takes none, as in the JAX package),
+the AQ map plus the row-RC offsets per P frame, at CU16 and in the CU32 /
+CU64 P programs with deblocking off, each P frame emitted before the next
+is dispatched. All-intra, maps run with deblocking on too (host I
+frames).
 
 SAO: the tree and P programs decide and apply SAO on the device and ship
 its parameters on the wire. The CU16 intra program has none, and for its
@@ -38,9 +50,12 @@ decision there would choose other, equally legal parameters). The P
 chain then predicts from the filtered picture.
 
 Rate control, WPP substreams and the native CABAC serializer work as in
-the JAX package. There is no numpy golden path: a configuration outside
-the slice raises NotImplementedError when the pipeline is built, naming
-the ROADMAP.md Queue 1 item that will bring it.
+the JAX package. The host P programs are not ported: a configuration
+whose P frames the JAX package codes on its numpy golden path (intra_rdo
+at CU16 in IPPP, maps with deblocking in IPPP, num_ref_frames > 2), and
+IBP with maps or more than one device, raises NotImplementedError when
+the pipeline is built, naming the ROADMAP.md Queue 1 item that will bring
+it. No route depends on the device found or on a failure.
 """
 
 from __future__ import annotations
@@ -54,6 +69,7 @@ import numpy as np
 from homerhevc_tpu_torch.config import EncoderConfig, RDMode
 from homerhevc_tpu_torch.device import resolve_device
 from homerhevc_tpu_torch.engine.rate_control import RateControl, aq_qp_map
+from homerhevc_tpu_torch.hevc import deblock as hdb
 from homerhevc_tpu_torch.hevc.bitstream import (
     NAL_IDR_W_RADL, NAL_TRAIL_N, NAL_TRAIL_R, BitWriter, ebsp_row_escapes,
     make_nal,
@@ -64,10 +80,12 @@ from homerhevc_tpu_torch.hevc.headers import (
     SLICE_B, SLICE_I, SLICE_P, ParamSets, SliceParams, write_pps,
     write_slice_header, write_sps, write_vps,
 )
+from homerhevc_tpu_torch.hevc.intra_frame import encode_intra_frame
+from homerhevc_tpu_torch.hevc.intra_tree import (decide_intra_tree,
+                                                 encode_intra_tree_frame)
 from homerhevc_tpu_torch.hevc.sao import sao_apply_component, sao_decide
 from homerhevc_tpu_torch.hevc.syntax import SliceDataEncoder
 from homerhevc_tpu_torch.utils.profiler import PROFILER
-
 
 
 def _mref(desc, refs_before, poc):
@@ -97,43 +115,69 @@ def _ref_dists(poc, refs_before, refs_after, l1_swap):
     return (poc - l0, poc - l1)
 
 
+def _maps(cfg: EncoderConfig) -> bool:
+    """Per-CTB QP maps (AQ, row-RC): the PPS cu_qp_delta machinery."""
+    return cfg.aq_strength > 0 or cfg.rc_ctu
+
+
 def tree_ok(cfg: EncoderConfig) -> bool:
     """The intra CU-tree device path (decision + CTB32 wavefront with
     in-loop deblocking and SAO) serves `cfg`, a config padded to whole
     CTUs: the twin of EncoderPipeline._tpu_tree_ok."""
-    return (cfg.intra_rdo and cfg.cu_size in (32, 64)
-            and not (cfg.aq_strength > 0 or cfg.rc_ctu)
+    return (cfg.intra_rdo and cfg.cu_size in (32, 64) and not _maps(cfg)
             and cfg.rd_mode != RDMode.RD_FULL
             and cfg.width % 32 == 0 and cfg.height % 32 == 0)
+
+
+def intra_device_ok(cfg: EncoderConfig) -> bool:
+    """A device program codes the I frames of `cfg` (padded): the tree, or
+    the CU16 wavefront without intra_rdo, whose per-CTB QP maps need
+    deblocking off (the deblocking QP of an uncoded quantization group is
+    the decoder's predictor, which only the host infers). The twin of
+    EncoderPipeline._tpu_ok; every other I frame takes the host programs
+    (TorchPipeline._analyze_intra_host)."""
+    return tree_ok(cfg) or (
+        not cfg.intra_rdo and not (_maps(cfg) and cfg.deblocking)
+        and cfg.cu_size == 16
+        and cfg.width % 16 == 0 and cfg.height % 16 == 0)
+
+
+def inter_device_ok(cfg: EncoderConfig) -> bool:
+    """The device P programs code the P and B frames of `cfg` (padded):
+    CU16 where the I frames are on the device, and the CU32 / CU64 tree
+    whatever codes the I frames, with per-CTB QP maps only with deblocking
+    and intra-in-P off. The twin of EncoderPipeline._tpu_inter_ok."""
+    if intra_device_ok(cfg):
+        return True
+    maps_ok = not _maps(cfg) or (not cfg.deblocking and not cfg.intra_in_p)
+    geom_ok = ((cfg.cu_size == 32 and cfg.width % 32 == 0
+                and cfg.height % 16 == 0)
+               or (cfg.cu_size == 64 and cfg.width % 64 == 0
+                   and cfg.height % 64 == 0))
+    return maps_ok and geom_ok
 
 
 def unported(cfg: EncoderConfig) -> str | None:
     """Why `cfg` (padded to whole CTUs) lies outside the configurations the
     port covers, and the ROADMAP.md Queue 1 item that brings it; None when
-    it is covered. Per-CTB QP maps (AQ, row-RC) run where the JAX package
-    runs them on its device (its _tpu_ok / _tpu_inter_ok): at CU16 without
-    intra_rdo, with deblocking off, all-intra or IPPP."""
+    it is covered. I frames of every configuration are covered: the
+    device programs where the JAX package runs its own, the host programs
+    elsewhere. P and B frames are covered where the JAX package runs its
+    device P programs (inter_device_ok)."""
     inter = cfg.gop_size != 0
-    maps = cfg.aq_strength > 0 or cfg.rc_ctu
     checks = (
-        (maps and cfg.deblocking,
-         "per-CTB QP maps (AQ, row-RC) with deblocking on, which the JAX "
-         "package codes only on its numpy golden path (the decoder-view QP "
-         "map, decoder_qp_map8: Queue 1 item 7)"),
-        (maps and (cfg.cu_size != 16 or cfg.intra_rdo),
-         "per-CTB QP maps (AQ, row-RC) with CU-tree I frames, which the JAX "
-         "package codes only on its numpy golden path (Queue 1 item 7)"),
-        (maps and inter and cfg.num_b >= 1,
+        (inter and not inter_device_ok(cfg),
+         "P frames the JAX package encodes only on its numpy golden path "
+         "(intra_rdo at CU16; per-CTB QP maps (AQ, row-RC) with deblocking "
+         "on, or with intra-in-P at CU32 / CU64: the host P programs, "
+         "Queue 1 item 7, slice 8)"),
+        (_maps(cfg) and inter and cfg.num_b >= 1,
          "per-CTB QP maps (AQ, row-RC) with B frames, IBP's anchors taking "
          "maps and its B frames none (Queue 1 item 4, IBP with maps)"),
-        ((cfg.cu_size != 16 or cfg.intra_rdo) and not tree_ok(cfg),
-         "an intra configuration the JAX package encodes only on its numpy "
-         "golden path (RD_FULL, intra_rdo at CU16, CU32/CU64 without "
-         "intra_rdo, whose I frames have no device program in IPPP either: "
-         "Queue 1 item 7)"),
         (inter and cfg.num_ref_frames > 2,
          "multi-reference P frames with num_ref_frames > 2, which the JAX "
-         "package codes only on its numpy golden path (Queue 1 item 7)"),
+         "package codes only on its numpy golden path (Queue 1 item 7, "
+         "slice 8)"),
         (cfg.num_devices != 1, "multi-GPU encoding (Queue 1 item 6)"),
     )
     for bad, what in checks:
@@ -222,12 +266,16 @@ class TorchPipeline:
         self.rc = RateControl(cfg)
         # the exact per-CTU-row byte counts of the last WPP slice (row-RC)
         self._last_row_sizes = None
+        # which program codes the I frames: the device's, or the host's
+        # (hevc/intra_frame.py, hevc/intra_tree.py), by configuration alone
+        self._intra_device = intra_device_ok(cfg)
         self._intra_enc = None
         self._inter_enc = None
 
     # ---- device encoders ---------------------------------------------------
 
     def _intra(self):
+        assert self._intra_device, "the host programs code these I frames"
         if self._intra_enc is None:
             if tree_ok(self.cfg):
                 from homerhevc_tpu_torch.engine.intra_tree_encoder import \
@@ -256,8 +304,8 @@ class TorchPipeline:
 
     def _aq_map(self, y, qp):
         """The per-CTB AQ map of an I frame, or None with cu_qp_delta off
-        (maps never reach the tree encoder: unported refuses them
-        there)."""
+        (maps never reach the device tree encoder: tree_ok excludes
+        them)."""
         if not self.ps.cu_qp_delta_enabled:
             return None
         return aq_qp_map(np.asarray(y), self.ps.ctu_size, qp,
@@ -305,6 +353,56 @@ class TorchPipeline:
         self.rc.note_row_shares(row_mass(d.coef_y, ctu)
                                 + row_mass(d.coef_u, ctu // 2)
                                 + row_mass(d.coef_v, ctu // 2) + 1)
+
+    # ---- I frames -----------------------------------------------------------
+
+    def _analyze_intra(self, y, u, v, qp):
+        """One I frame, inline: on the device programs where they serve the
+        configuration, else on the host programs."""
+        if not self._intra_device:
+            with PROFILER.scope("analyze_intra_host"):
+                return self._analyze_intra_host(y, u, v, qp)
+        with PROFILER.scope("analyze_intra_device"):
+            return self._intra().encode_frame(y, u, v, qp,
+                                              qp_map=self._aq_map(y, qp))
+
+    def _analyze_intra_host(self, y, u, v, qp):
+        """The host I-frame programs, as the JAX package's
+        _analyze_intra_golden runs them: the tree (CTB32 nodes; RD_FULL
+        adds NxN 4x4 PUs, TU splits and the chroma RDO) with intra_rdo at
+        CTU 32 / 64, else fixed CUs of min(cu_size, 32) with the per-CTB AQ
+        map; then deblocking, at the QP a decoder derives for each unit
+        under cu_qp_delta. SAO follows in _emit. Returns (FrameDesc, y, u,
+        v) with int32 recon planes."""
+        ps = self.ps
+        tree = self.cfg.intra_rdo and ps.ctu_size >= 32
+        if tree:
+            # the tree takes no map (the JAX package passes none there)
+            ctb = min(ps.ctu_size, 32)
+            dec = decide_intra_tree(
+                ps, y, u, v, qp, ctb=ctb,
+                full_rd=self.cfg.rd_mode == RDMode.RD_FULL)
+            desc, ry, ru, rv = encode_intra_tree_frame(ps, y, u, v, qp, dec,
+                                                       ctb=ctb)
+        else:
+            desc, ry, ru, rv = encode_intra_frame(
+                ps, y, u, v, qp, cu_size=min(self.cfg.cu_size, 32),
+                qp_map=self._aq_map(y, qp))
+        if ps.deblocking_enabled:
+            tu8 = ((ps.ctu_size >> desc.cu_depth) >> desc.tr_depth) \
+                .astype(np.int32)
+            if ps.cu_qp_delta_enabled:
+                # uncoded quantization groups keep the predictor's QP
+                qp8 = hdb.decoder_qp_map8(desc, ps, qp, wpp=ps.wpp)
+            else:
+                qp8 = np.full_like(tu8, qp)
+            bs_v, bs_h = hdb.intra_bs_maps(tu8)
+            ry = hdb.deblock_plane_luma(ry, tu8, qp8, bs_v, bs_h)
+            ru = hdb.deblock_plane_chroma(ru, qp8, bs_v, bs_h,
+                                          ps.cb_qp_offset)
+            rv = hdb.deblock_plane_chroma(rv, qp8, bs_v, bs_h,
+                                          ps.cr_qp_offset)
+        return desc, ry, ru, rv
 
     # ---- serialization ------------------------------------------------------
 
@@ -471,7 +569,7 @@ class TorchPipeline:
         PREVIOUS batch while the device runs (host/device overlap)."""
         frames = self._queue
         self._queue = []
-        if len(frames) > 1:
+        if len(frames) > 1 and self._intra_device:
             # all-intra batch pipeline: two batches stay in flight
             enc = self._intra()
             with PROFILER.scope("pack_upload"):
@@ -509,12 +607,11 @@ class TorchPipeline:
             qp = self.rc.pic_qp(True)
         if intra:
             yield from self._drain_p_pending()
-            with PROFILER.scope("analyze_intra_device"):
-                desc, ry, ru, rv = self._intra().encode_frame(
-                    y, u, v, qp, qp_map=self._aq_map(y, qp))
+            desc, ry, ru, rv = self._analyze_intra(y, u, v, qp)
             ef = self._emit(desc, ry, ru, rv, (y, u, v), qp=qp)
-            # the next P frame predicts from the recon as filtered by SAO;
-            # references never cross an IDR
+            # the next P frame predicts from the recon as filtered by SAO (a
+            # host recon is uploaded by the P program's dispatch, only when
+            # a P frame follows); references never cross an IDR
             self._ref, self._ref_prev = self._last_recon, None
             yield ef
             return
@@ -615,8 +712,7 @@ class TorchPipeline:
             if self._held is not None:
                 yield from self._trailing_p()    # closed GOP before the IDR
             self._idr_base = t
-            with PROFILER.scope("analyze_intra_device"):
-                desc, ry, ru, rv = self._intra().encode_frame(*fr, qp)
+            desc, ry, ru, rv = self._analyze_intra(*fr, qp)
             self._anchor_m2 = None
             yield self._emit(desc, ry, ru, rv, fr, qp=qp, display_poc=t)
         else:

@@ -15,20 +15,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from homerhevc_tpu_torch.hevc.deblock import BETA_TABLE, TC_TABLE
 from homerhevc_tpu_torch.hevc.tables import CHROMA_QP_MAP
-
-# beta' and tc' tables (spec Table 8-11)
-BETA_TABLE = np.array([
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 20, 22, 24,
-    26, 28, 30, 32, 34, 36, 38, 40, 42, 44, 46, 48, 50, 52, 54, 56,
-    58, 60, 62, 64,
-], np.int32)
-TC_TABLE = np.array([
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4,
-    4, 4, 5, 5, 6, 6, 7, 8, 9, 10, 11, 13, 14, 16, 18, 20, 22, 24,
-], np.int32)
 
 
 @lru_cache(maxsize=None)

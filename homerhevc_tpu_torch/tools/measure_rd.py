@@ -7,8 +7,9 @@ PSNR(Y,U,V) as one JSON line, and optionally dump the stream.
         [-nref N] [-me_prec 0|1|2] [-o out.265] [-qps 27,32,37] \\
         [-device cuda|cpu]
 
-Runs on the card unless -device cpu is given (the port has no golden
-path, so the JAX tool's -backend has no counterpart). -me_prec sets the
+Runs on the card unless -device cpu is given (the port picks its host
+intra programs by configuration alone, so the JAX tool's -backend has no
+counterpart). -me_prec sets the
 motion estimation precision (0 full-pel, 1 half, 2 quarter: the CLI's
 -motion_estimation_precision). Times are host clock reads with the card
 synchronised before each. -qps encodes the clip once per QP in one

@@ -7,7 +7,11 @@ Encoders (all-intra AQ batched; IPPP AQ + row-RC under CBR with WPP off
 and on; IPPP CBR and VBR without maps), each decoding in FFmpeg to the
 port's recon. Each JAX program is built once, in a module fixture, and
 injected into the JAX Encoders; the P programs' coarse sweep runs in
-Pallas interpret mode (tests/torch_golden.interpret_sweep)."""
+Pallas interpret mode (tests/torch_golden.interpret_sweep). The CU64 map
+program also codes the P frames of an IPPP stream whose I frames take the
+host tree (intra_rdo with maps)."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -245,6 +249,16 @@ def _split_motion(ref_y):
     return y, ref_y
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_p64_aq():
+    """The JAX CTU-64 P program with a map at 128x64 (AQ, deblocking off),
+    built once for the module: the CU64 P program test and the stream of
+    tree I frames with maps share it."""
+    kw = dict(_IPPP_AQ_KW, cu_size=64, intra_rdo=True, rc_ctu=False)
+    jcfg = JaxConfig(**kw)
+    return TpuInterEncoder(JaxParamSets.from_config(jcfg), jcfg)
+
+
 @pytest.mark.parametrize("cu", [16, 64])
 def test_p_program_with_map_matches_jax(cu, jax_ippp_aq):
     """TorchInterEncoder._impl(qp_map=) against
@@ -259,8 +273,7 @@ def test_p_program_with_map_matches_jax(cu, jax_ippp_aq):
     if cu == 64:
         y, ry = _split_motion(ref[0])
         ref = (ry, u, v)
-        jcfg = JaxConfig(**kw)
-        jenc = TpuInterEncoder(JaxParamSets.from_config(jcfg), jcfg)
+        jenc = _jax_p64_aq()
     else:
         jenc = jax_ippp_aq[1]
     qmap = aq_qp_map(y, cu, 30, 2.0)
@@ -362,3 +375,30 @@ def _jax_encoder_rc(mode, pair):
                                bitrate_mode=JaxBitrateMode[mode]))
     enc._pipeline._tpu_intra, enc._pipeline._tpu_inter = pair
     return enc
+
+
+def test_tree_i_frames_with_maps_stream_matches_jax_and_decodes(tmp_path):
+    """IPPP at CTU 64 with intra_rdo, AQ and row-RC under CBR, deblocking
+    off, chip_smoke.py's IPPP AQ cell at CTU 64: the I frame on the host
+    tree (with no map, as the JAX package codes it), each P frame inline
+    on the CU64 P program with its map. Both Encoders (the JAX one on the
+    program above) give identical bytes, which decode to the port's
+    recon; every P frame carries its map."""
+    n = 3
+    kw = dict(_IPPP_AQ_KW, cu_size=64, intra_rdo=True)
+    frames = chip_smoke.aq_frames(n, _W_P, _H_P)
+    jenc = JaxEncoder(JaxConfig(**kw))
+    jenc._pipeline._tpu_inter = _jax_p64_aq()
+    want = _encode(jenc, frames)
+    enc = Encoder(EncoderConfig(**kw), device="cpu")
+    maps = []
+    emit = enc._pipeline._emit
+
+    def spy(desc, *a, **k):
+        maps.append(desc.qp_map)
+        return emit(desc, *a, **k)
+    enc._pipeline._emit = spy
+    got = _encode(enc, frames)
+    assert enc._pipeline._intra_enc is None
+    assert maps[0] is None and all(m is not None for m in maps[1:])
+    _assert_same_stream_and_decodes(want, got, tmp_path / "tree_aq.265", n)

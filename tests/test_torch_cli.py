@@ -6,31 +6,21 @@ decodes in FFmpeg to the port's -o-raw luma. The argument sets hold the
 knobs no other port test sets: full-pel ME with scaling lists, half-pel
 ME with WPP (no per-CTB maps) under VBR, and all-intra without SAO and
 sign hiding. Argument sets of the other knobs map to the JAX CLI's
-config too."""
+config too. The CU-tree configurations the host intra programs opened
+(-cu_size 64; -rd_mode 1 with -intra_rdo 1 at CU32) are held to the JAX
+CLI where their JAX P program is built anyway (test_torch_inter_tree.py,
+test_torch_digests.py), through torch_golden.cli_matches_the_jax_cli."""
 
 import dataclasses
 
-import numpy as np
 import pytest
 import torch
 
 import homerhevc_tpu.cli as jax_cli
 from homerhevc_tpu_torch import cli
-from homerhevc_tpu_torch.tools.p_frame_ops import bench_clip, write_yuv
-from tests.conftest import decode_annexb
-from tests.torch_golden import interpret_sweep
+from tests.torch_golden import cli_matches_the_jax_cli, interpret_sweep
 
 torch.set_num_threads(1)    # one intra-op thread per test worker
-
-W, H, N = 128, 64, 4
-
-
-def _argv(tmp_path, tag, extra):
-    return (["-i", str(tmp_path / "in.yuv"),
-             "-o", str(tmp_path / f"{tag}.265"),
-             "-o-raw", str(tmp_path / f"{tag}.yuv"),
-             "-widthxheight", f"{W}x{H}", "-n_frames", str(N)] + extra)
-
 
 _CASES = {
     "fullpel-scaling": ["-motion_estimation_precision", "0",
@@ -47,33 +37,7 @@ _CASES = {
 def test_cli_matches_the_jax_cli_and_decodes(case, tmp_path, monkeypatch,
                                              capsys):
     interpret_sweep(monkeypatch)
-    write_yuv(tmp_path / "in.yuv", bench_clip(W, H, N, 7))
-    extra = _CASES[case]
-    seen = []
-    jax_encoder = jax_cli.Encoder
-
-    def capture(cfg):
-        seen.append(cfg)
-        return jax_encoder(cfg)
-    monkeypatch.setattr(jax_cli, "Encoder", capture)
-    assert jax_cli.main(_argv(tmp_path, "jax", extra)) == 0
-    port_argv = _argv(tmp_path, "port", extra) + ["-device", "cpu", "-psnr"]
-    cfg = cli.config_from_args(cli.build_parser().parse_args(port_argv))
-    assert len(seen) == 1
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(seen[0])
-    capsys.readouterr()
-    assert cli.main(port_argv) == 0
-    lines = capsys.readouterr().out.splitlines()
-    assert lines[-2].startswith(f"{N} frames in ")
-    assert lines[-1].startswith("average PSNR Y ")
-    stream = (tmp_path / "port.265").read_bytes()
-    assert stream == (tmp_path / "jax.265").read_bytes()
-    dec = decode_annexb(tmp_path / "port.265")
-    rec = np.fromfile(tmp_path / "port.yuv", np.uint8).reshape(
-        N, H * 3 // 2, W)
-    assert len(dec) == N
-    for i in range(N):
-        assert np.array_equal(dec[i], rec[i, :H]), f"frame {i}"
+    cli_matches_the_jax_cli(_CASES[case], tmp_path, monkeypatch, capsys)
 
 
 @pytest.mark.parametrize("extra", [

@@ -4,7 +4,8 @@ version, the wrapper's checks on CUDA tensors, and the encoders (flat
 CU16 I and P, the intra CU tree, device SAO, the CU-tree P program with
 the FAR level and intra-in-P, the bi-capable B program, the
 generalized-B chain, the intra and P programs with per-CTB QP maps, the
-CLI) and the ops they add on the card against the same code on the CPU,
+CLI, an IPPP stream whose I frame takes the host programs) and the ops
+they add on the card against the same code on the CPU,
 and the port's parser on a stream coded on the card. They
 skip here with a reason. This file imports no jax, so on the card's machine it runs
 without the JAX package's conftest:
@@ -425,3 +426,30 @@ def test_parser_round_trip_of_a_card_stream(card):
     for ps, desc, sao, nal in spy.slices:
         _, p = parse_slice_nal(ps, nal)
         assert desc_mismatches(p.d, desc, p.sao, sao) == []
+
+
+def test_host_i_frame_ippp_stream_on_card_matches_cpu(card):
+    """IPPP at CTU 32 without intra_rdo, deblocking and SAO (128x64, 4
+    frames): the I frame on the host's fixed-CU32 program, the P frames on
+    the card, each predicting from the host recon as SAO filtered it,
+    uploaded to the card; the stream and recon equal the CPU path's byte
+    for byte, the sweep once per P frame, no device intra encoder
+    built."""
+    from homerhevc_tpu_torch.api import Encoder
+    from homerhevc_tpu_torch.tools.p_frame_ops import bench_clip
+    cfg = EncoderConfig(width=128, height=64, qp=32, cu_size=32, gop_size=1,
+                        deblocking=True, sao=True, sign_hiding=True)
+    frames = bench_clip(128, 64, 4, 23)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        enc = Encoder(cfg, device=dev)
+        before = LAUNCHES["coarse_sweep_sads"]
+        efs = [e for f in frames for e in enc.encode(*f)]
+        efs += list(enc.flush())
+        assert LAUNCHES["coarse_sweep_sads"] - before == (3 if dev == "cuda"
+                                                          else 0)
+        assert enc._pipeline._intra_enc is None
+        out[dev] = (b"".join(e.annex_b() for e in efs),
+                    [e.recon[c].tobytes() for e in efs for c in "yuv"])
+    assert [e.frame_type for e in efs] == ["I", "P", "P", "P"]
+    assert out["cuda"] == out["cpu"]

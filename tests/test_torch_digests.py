@@ -10,7 +10,13 @@ JAX package's Encoder by tests/torch_golden.py jax_b_stream_digests
 (minutes of JAX tracing and compiling, not a tier-1 test); the port's CPU
 path hashes to them here, as it does to the AQ cells (AQ_DIGESTS: 96x64
 all-intra AQ and 128x64 IPPP AQ + row-RC under CBR, the JAX Encoder's
-digests, computed and held by tests/test_torch_aq.py). On the card,
+digests, computed and held by tests/test_torch_aq.py). The host intra
+cells (HOST_DIGESTS: 128x64 IPPP at CTU 32 with a fixed-CU32 I frame,
+RD_FULL all-intra at CTU 32, all-intra CU16 AQ with deblocking) are the
+JAX Encoder's digests, computed here (its CTU-32 P program built once,
+the sweep in Pallas interpret mode), and the port's CPU path hashes to
+them; that P program also serves the JAX CLI's -rd_mode 1 -cu_size 32
+-intra_rdo 1 stream, which the port's CLI equals. On the card,
 chip_smoke.py holds the port's CUDA path to these constants."""
 
 import types
@@ -25,7 +31,8 @@ from homerhevc_tpu.golden import deblock as gdb
 from homerhevc_tpu.golden.inter_frame import encode_inter_frame
 from homerhevc_tpu.golden.intra_frame import encode_intra_frame
 from homerhevc_tpu.hevc import bitstream, cabac, ctx_tables, headers, syntax
-from tests.torch_golden import golden_tree
+from tests.torch_golden import (cli_matches_the_jax_cli, golden_tree,
+                                interpret_sweep)
 
 torch.set_num_threads(1)    # one intra-op thread per test worker
 
@@ -118,3 +125,58 @@ def test_port_reproduces_the_b_stream_digests(cell):
         b"".join(e.annex_b() for e in efs),
         [e.recon[c] for e in efs for c in "yuv"]) == \
         chip_smoke.B_DIGESTS[cell]
+
+
+@pytest.fixture(scope="module")
+def jax_host_streams():
+    """The host intra cells through the JAX package's Encoder on the CPU:
+    their digests, and the CTU-32 P program its IPPP cell built (the
+    sweep in Pallas interpret mode)."""
+    from homerhevc_tpu.api import Encoder as JaxEncoder
+    programs = []
+
+    def encode(kw, frames):
+        enc = JaxEncoder(EncoderConfig(**kw))
+        efs = chip_smoke.encode_all(enc, frames)
+        if enc._pipeline._tpu_inter is not None:
+            programs.append(enc._pipeline._tpu_inter)
+        return efs
+    with pytest.MonkeyPatch.context() as mp:
+        interpret_sweep(mp)
+        got = chip_smoke.host_stream_digests(encode)
+    assert len(programs) == 1
+    return got, programs[0]
+
+
+def test_chip_smoke_host_digests_are_the_jax_encoders(jax_host_streams):
+    assert jax_host_streams[0] == chip_smoke.HOST_DIGESTS
+
+
+@pytest.mark.parametrize("cell", list(chip_smoke.HOST_CELLS))
+def test_port_reproduces_the_host_stream_digests(cell):
+    """The host intra cells on the port's CPU path: no device intra
+    encoder is built."""
+    from homerhevc_tpu_torch.api import Encoder
+    from homerhevc_tpu_torch.config import EncoderConfig as TorchConfig
+    kw, n = chip_smoke.HOST_CELLS[cell]
+    kw = {**chip_smoke.HOST_CFG, **kw}
+    enc = Encoder(TorchConfig(**kw), device="cpu")
+    efs = chip_smoke.encode_all(
+        enc, chip_smoke.aq_frames(n, kw["width"], kw["height"]))
+    assert enc._pipeline._intra_enc is None
+    assert chip_smoke.digests(
+        b"".join(e.annex_b() for e in efs),
+        [e.recon[c] for e in efs for c in "yuv"]) == \
+        chip_smoke.HOST_DIGESTS[cell]
+
+
+def test_cli_rd_full_tree_matches_the_jax_cli(jax_host_streams, tmp_path,
+                                              monkeypatch, capsys):
+    """-rd_mode 1 -cu_size 32 -intra_rdo 1 at the CLIs' other defaults
+    (IPPP, deblocking, SAO; 128x64, 4 frames): the RD_FULL host tree I
+    frame and the CTU-32 P frames, the JAX CLI's on the P program the
+    digests built; the same config, bytes and an FFmpeg decode equal to
+    the port's -o-raw."""
+    cli_matches_the_jax_cli(["-rd_mode", "1", "-cu_size", "32",
+                             "-intra_rdo", "1"], tmp_path, monkeypatch,
+                            capsys, jax_inter=jax_host_streams[1])

@@ -6,7 +6,9 @@ api.Encoder, whose P frames equal golden encode_inter_frame_tree from the
 same reference and which decodes (FFmpeg) to the port's recon; and the
 CTU-64 IBP stream (uni-L0 B frames) against the JAX Encoder with its
 golden I frame. (The JAX CTU-64 tree I frame is not a reference: it does
-not decode to its own recon, ROADMAP Queue 3.)"""
+not decode to its own recon, ROADMAP Queue 3.) Without intra_rdo the I
+frames take the host fixed-CU32 program in both packages, and the CTU-64
+IPPP stream equals the JAX Encoder's and the JAX CLI's."""
 
 import dataclasses
 import functools
@@ -27,7 +29,7 @@ from homerhevc_tpu_torch.hevc.headers import ParamSets
 from homerhevc_tpu_torch.state import reference_from_numpy
 from tests.conftest import decode_annexb
 from tests.torch_golden import (P_FIELDS, IntSums, assert_p_frames_equal,
-                                torch_p_frame)
+                                cli_matches_the_jax_cli, torch_p_frame)
 
 torch.set_num_threads(1)    # one intra-op thread per test worker
 
@@ -249,6 +251,54 @@ def test_ibp_ctu64_stream_matches_jax_and_decodes(tmp_path):
     assert len(dec) == 5
     for e in got:
         assert np.array_equal(dec[e.poc], e.recon["y"]), e.poc
+
+
+def test_ippp_ctu64_host_i_frames_match_jax_and_decode(tmp_path,
+                                                      monkeypatch, capsys):
+    """IPPP at CTU 64 without intra_rdo, deblocking and SAO: both packages
+    code the I frame on their host fixed-CU32 program and the P frames on
+    the CTU-64 P program (the JAX Encoder on the "64-full" program above,
+    built once for the module). 3 frames through both Encoders give
+    identical Annex-B bytes, which decode to the port's recon, with CU64s
+    in the P frames; then 4 frames through both CLIs (-cu_size 64 with
+    their defaults) give identical bytes too."""
+    w, h = 128, 64
+    p_kw = _tree_kw(w, h, 64, 32, deblocking=True, sao=True,
+                    performance_mode=PerformanceMode.FULL_COMPUTATION)
+    kw = dict(p_kw, intra_rdo=False)
+    (_, u, v), (y, _, _) = _gradient_pair(12, w, h)
+    rng = np.random.RandomState(13)
+    frames = [(np.clip(np.roll(y, 2 * t, 1).astype(int)
+                       + rng.randint(-2, 3, y.shape), 0, 255)
+               .astype(np.uint8), u, v) for t in range(3)]
+    jax_enc = JaxEncoder(JaxConfig(**{**kw, "performance_mode": 0}))
+    jax_enc._pipeline._tpu_inter = _jax_encoder(**p_kw)
+    port = Encoder(EncoderConfig(**kw), device="cpu")
+    descs = []
+    emit = port._pipeline._emit
+
+    def spy(desc, *a, **k):
+        descs.append(desc)
+        return emit(desc, *a, **k)
+    port._pipeline._emit = spy
+
+    def encode(enc):
+        return [e for f in frames for e in enc.encode(*f)] + \
+            list(enc.flush())
+    want, got = encode(jax_enc), encode(port)
+    assert [e.frame_type for e in got] == ["I", "P", "P"]
+    assert port._pipeline._intra_enc is None
+    assert any((d.cu_depth == 0).any() for d in descs[1:])
+    stream = b"".join(e.annex_b() for e in got)
+    assert stream == b"".join(e.annex_b() for e in want)
+    path = tmp_path / "ippp64_host_i.265"
+    path.write_bytes(stream)
+    dec = decode_annexb(path)
+    assert len(dec) == 3
+    for d, e in zip(dec, got):
+        assert np.array_equal(d, e.recon["y"])
+    cli_matches_the_jax_cli(["-cu_size", "64"], tmp_path, monkeypatch,
+                            capsys, jax_inter=_jax_encoder(**p_kw))
 
 
 def test_tree_p_program_reads_the_padded_geometry():

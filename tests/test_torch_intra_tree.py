@@ -400,3 +400,30 @@ def test_gpb_stream_matches_jax_and_decodes(tmp_path, jax_tree_encoder,
     assert [e.frame_type for e in got] == ["I", "P", "B", "B", "B"]
     assert [e.poc for e in got] == [0, 1, 2, 3, 4]
     assert all((d.inter_dir == 3).any() for d in descs[2:])
+
+
+@pytest.mark.parametrize("changes,types", [
+    pytest.param(dict(intra_rdo=False), "IPP", id="ippp-cu32"),
+    pytest.param(dict(rd_mode=1), "IPP", id="ippp-rd_full"),
+    pytest.param(dict(rd_mode=1, gop_size=2), "IPBBB", id="ibp-rd_full")])
+def test_host_i_frame_streams_match_jax_and_decode(changes, types, tmp_path,
+                                                   jax_tree_encoder,
+                                                   jax_inter_encoder,
+                                                   monkeypatch):
+    """CTU 32 with I frames on the host programs, their P and B frames on
+    the device programs: IPPP without intra_rdo (fixed CU32 I frames),
+    and RD_FULL (the host tree with NxN PUs, TU splits and the chroma
+    RDO) in IPPP and IBP (decode order I0 P2 B1 A4 B3, the anchor A4
+    bi-predicted, its I frame through _encode_gop2), with deblocking and
+    SAO, against the JAX Encoder with the module's P / B program (search
+    16 in both; the spec's two-list AMVP list, spec_amvp): identical bytes
+    and an FFmpeg decode equal to the port's recon."""
+    interpret_sweep(monkeypatch)
+    spec_amvp(monkeypatch)
+    kw = dict(_INTER_KW, **changes)
+    frames = _stream_frames(len(types), 45, noise=6)
+    got, descs = _b_stream(kw, frames, tmp_path, jax_tree_encoder,
+                           jax_inter_encoder)
+    assert "".join(e.frame_type for e in got) == types
+    if kw.get("rd_mode"):
+        assert descs[0].part_nxn.any() or descs[0].tr_depth.any()

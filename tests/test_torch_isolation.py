@@ -45,7 +45,9 @@ def _sources():
 
 _ENTRY_POINTS = ("cli.py", "hevc/parse.py", "hevc/cabac_dec.py",
                  "tools/measure_rd.py", "tools/prof_device.py",
-                 "tools/bench.py")
+                 "tools/bench.py", "hevc/transform.py", "hevc/quantize.py",
+                 "hevc/intra_frame.py", "hevc/intra_tree.py",
+                 "hevc/deblock.py")
 
 
 def test_no_source_imports_jax_or_the_jax_package():
@@ -158,12 +160,11 @@ def test_cli_module_runs_without_jax(tmp_path):
 
 
 def test_cli_refuses_an_unported_config_before_any_output(tmp_path):
-    """RD_FULL with the intra CU tree (the JAX package's golden path):
-    the CLI exits non-zero with the NotImplementedError naming Queue 1
-    item 7 on stderr, and writes no stream and no recon. (At CU16 the JAX
-    package codes -rd_mode 1 on its device path, which has no RD_FULL,
-    and so does the port.)"""
-    r, _ = _cli(tmp_path, "-rd_mode", "1", "-cu_size", "32", "-intra_rdo",
+    """intra_rdo at CU16 in IPPP, whose P frames the JAX package codes on
+    its numpy golden path (the host P programs, not ported): the CLI exits
+    non-zero with the NotImplementedError naming Queue 1 item 7 on stderr,
+    and writes no stream and no recon."""
+    r, _ = _cli(tmp_path, "-intra_rdo", "1", "-cu_size", "16", "-gop_size",
                 "1")
     assert r.returncode != 0
     assert "NotImplementedError" in r.stderr
@@ -175,13 +176,21 @@ def test_cli_refuses_an_unported_config_before_any_output(tmp_path):
 _BASE = dict(width=64, height=64, cu_size=16, gop_size=1, qp=32, sao=False)
 
 
+def _lifted(changes, types, index):
+    """A case refused until the host intra programs were ported, under the
+    id it had in test_unported_config_raises."""
+    return pytest.param(changes, types, id=f"changes{index}")
+
+
 _TREE = dict(gop_size=0, cu_size=32, intra_rdo=True)
 
 
 def _case(changes, item, index, named=None):
     """A refusal case under the id it had when the list also held the B,
     generalized-B and two-reference cases (now in
-    test_lifted_config_encodes), so that each keeps its name; named: the
+    test_lifted_config_encodes) and the host intra cases (now in
+    test_host_intra_config_encodes_and_decodes), so that each keeps its
+    name; named: the
     item in that id where the case once expected another (the per-CTB QP
     map cases, refused by item 4 before it was ported and now by item
     7's host paths)."""
@@ -190,33 +199,67 @@ def _case(changes, item, index, named=None):
 
 
 @pytest.mark.parametrize("changes,item", [
-    # IPPP at CU32 / CU64 without intra_rdo: its I frames have no device
-    # program
-    _case(dict(cu_size=32), "item 7", 0),
-    _case(dict(cu_size=64), "item 7", 3),
-    # per-CTB QP maps with deblocking on (the default) or tree I frames:
-    # the JAX package's golden path
+    # per-CTB QP maps with deblocking on (the default) in IPPP: the JAX
+    # package codes their P frames on its golden path
     _case(dict(intra_rdo=True, cu_size=32, aq_strength=1.0), "item 7", 4,
           "item 4"),
     _case(dict(aq_strength=1.0), "item 7", 5, "item 4"),
     _case(dict(rc_ctu=True), "item 7", 6, "item 4"),
     _case(dict(num_devices=2), "item 6", 9),
-    _case(dict(_TREE, rd_mode=RDMode.RD_FULL), "item 7", 10),
-    _case(dict(_TREE, aq_strength=1.0), "item 7", 11, "item 4"),
-    _case(dict(gop_size=0, intra_rdo=True), "item 7", 12),
-    _case(dict(gop_size=0, cu_size=64), "item 7", 13),
     # more than two references: the JAX package's golden path only
     _case(dict(num_ref_frames=3), "item 7", 14),
-    # maps with deblocking off but tree I frames (all-intra and IPPP)
-    _case(dict(_TREE, aq_strength=1.0, deblocking=False), "item 7", 15),
-    _case(dict(intra_rdo=True, cu_size=64, rc_ctu=True, deblocking=False),
-          "item 7", 16),
     # maps with B frames: IBP's anchors would take maps, its B frames none
     _case(dict(aq_strength=1.0, deblocking=False, num_b=1), "item 4", 17),
-    _case(dict(rc_ctu=True, deblocking=False, gop_size=2), "item 4", 18)])
+    _case(dict(rc_ctu=True, deblocking=False, gop_size=2), "item 4", 18),
+    # P frames of the host programs: intra_rdo at CU16, maps with
+    # intra-in-P at CU32 / CU64
+    _case(dict(intra_rdo=True), "item 7", 19),
+    _case(dict(cu_size=64, aq_strength=1.0, deblocking=False,
+               intra_in_p=True), "item 7", 20)])
 def test_unported_config_raises(changes, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         Encoder(EncoderConfig(**{**_BASE, **changes}), device="cpu")
+
+
+@pytest.mark.parametrize("changes,types", [
+    # IPPP at CU32 / CU64 without intra_rdo (host fixed-CU32 I frames)
+    _lifted(dict(cu_size=32), "IPP", 0),
+    _lifted(dict(cu_size=64), "IPP", 3),
+    # RD_FULL, the tree with a map and deblocking, intra_rdo at CU16, CU64
+    # without intra_rdo: all-intra on the host programs
+    _lifted(dict(_TREE, rd_mode=RDMode.RD_FULL), "III", 10),
+    _lifted(dict(_TREE, aq_strength=1.0), "III", 11),
+    _lifted(dict(gop_size=0, intra_rdo=True), "III", 12),
+    _lifted(dict(gop_size=0, cu_size=64), "III", 13),
+    # maps with deblocking off and tree I frames, all-intra and IPPP (the
+    # CU64 P program with its map)
+    _lifted(dict(_TREE, aq_strength=1.0, deblocking=False), "III", 15),
+    _lifted(dict(intra_rdo=True, cu_size=64, rc_ctu=True, deblocking=False),
+            "IPP", 16)])
+def test_host_intra_config_encodes_and_decodes(changes, types, tmp_path):
+    """Configurations refused until the host intra programs were ported
+    (under the ids they had in test_unported_config_raises) encode on the
+    CPU, 3 frames with deblocking on unless they set it off, and decode to
+    the port's recon; their I frames take the host route, their P frames
+    the device programs."""
+    yy, xx = np.mgrid[0:64, 0:64]
+    y = (100 + 60 * np.sin(xx / 5.0) + yy).astype(np.uint8)
+    y[:16] = 90                                  # a flat band: AQ deltas
+    c = np.full((32, 32), 128, np.uint8)
+    enc = Encoder(EncoderConfig(**{**_BASE, "deblocking": True,
+                                   "reinit_gop_on_scene_change": False,
+                                   **changes}), device="cpu")
+    efs = [e for t in range(3) for e in enc.encode(np.roll(y, 3 * t, 1),
+                                                   c, c)]
+    efs += list(enc.flush())
+    assert "".join(e.frame_type for e in efs) == types
+    assert enc._pipeline._intra_enc is None
+    path = tmp_path / "host.265"
+    path.write_bytes(b"".join(e.annex_b() for e in efs))
+    dec = decode_annexb(path)
+    assert len(dec) == 3
+    for d, e in zip(dec, efs):
+        assert np.array_equal(d, e.recon["y"])
 
 
 @pytest.mark.parametrize("changes,types", [

@@ -1,7 +1,8 @@
 """What the port's tests share: the golden intra tree reference (the
 golden tree decision + closed-loop encode, homerhevc_tpu.golden.intra_tree,
 with the golden deblock: the references tests/test_intra_tree.py holds the
-JAX tree to), and the P-frame comparison against the JAX P program."""
+JAX tree to), the P-frame comparison against the JAX P program, and the
+port's CLI against the JAX CLI (cli_matches_the_jax_cli)."""
 
 import functools
 
@@ -130,3 +131,57 @@ class IntSums(TorchDispatchMode):
             n = int(np.prod([args[0].shape[d] for d in args[1]]))
             self.largest[n] = max(self.largest.get(n, 0), int(out.max()))
         return out
+
+
+# the CLI comparison: 4 frames of the 128x64 clip
+W, H, N = 128, 64, 4
+
+
+def _argv(tmp_path, tag, extra):
+    return (["-i", str(tmp_path / "in.yuv"),
+             "-o", str(tmp_path / f"{tag}.265"),
+             "-o-raw", str(tmp_path / f"{tag}.yuv"),
+             "-widthxheight", f"{W}x{H}", "-n_frames", str(N)] + extra)
+
+
+def cli_matches_the_jax_cli(extra, tmp_path, monkeypatch, capsys,
+                            jax_inter=None):
+    """Both CLIs with the arguments extra on the 128x64 clip: the same
+    config, the same bytes, an FFmpeg decode equal to the port's -o-raw.
+    jax_inter: a JAX P program of the same configuration built by the
+    caller, given to the JAX CLI's Encoder in place of its own."""
+    import dataclasses
+
+    import homerhevc_tpu.cli as jax_cli
+    from homerhevc_tpu_torch import cli
+    from homerhevc_tpu_torch.tools.p_frame_ops import bench_clip, write_yuv
+    from tests.conftest import decode_annexb
+    write_yuv(tmp_path / "in.yuv", bench_clip(W, H, N, 7))
+    seen = []
+    jax_encoder = jax_cli.Encoder
+
+    def capture(cfg):
+        seen.append(cfg)
+        enc = jax_encoder(cfg)
+        if jax_inter is not None:
+            enc._pipeline._tpu_inter = jax_inter
+        return enc
+    monkeypatch.setattr(jax_cli, "Encoder", capture)
+    assert jax_cli.main(_argv(tmp_path, "jax", extra)) == 0
+    port_argv = _argv(tmp_path, "port", extra) + ["-device", "cpu", "-psnr"]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(port_argv))
+    assert len(seen) == 1
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(seen[0])
+    capsys.readouterr()
+    assert cli.main(port_argv) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[-2].startswith(f"{N} frames in ")
+    assert lines[-1].startswith("average PSNR Y ")
+    stream = (tmp_path / "port.265").read_bytes()
+    assert stream == (tmp_path / "jax.265").read_bytes()
+    dec = decode_annexb(tmp_path / "port.265")
+    rec = np.fromfile(tmp_path / "port.yuv", np.uint8).reshape(
+        N, H * 3 // 2, W)
+    assert len(dec) == N
+    for i in range(N):
+        assert np.array_equal(dec[i], rec[i, :H]), f"frame {i}"
