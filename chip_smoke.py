@@ -28,7 +28,10 @@ passed):
      flight; 128x64 IPPP AQ + row-RC under CBR; tests/test_torch_aq.py),
      and of its host intra streams at 128x64 (IPPP CTU 32 with a
      fixed-CU32 I frame, RD_FULL all-intra CTU 32, all-intra CU16 AQ with
-     deblocking; tests/test_torch_digests.py);
+     deblocking; tests/test_torch_digests.py), and of its host P streams
+     at 128x64 with the spec's AMVP lists (IPPP CU16 intra_rdo, IPPP CU16
+     AQ + deblocking, IPPP CTU 32 AQ + intra-in-P, IBP CTU 32 AQ +
+     deblocking, three references; tests/test_torch_digests.py);
   4. the main paths through homerhevc_tpu_torch.api.Encoder, each with the
      kernel launch counts set to 0 just before and read just after it:
      720p IPPP CU16 (1 I + 15 P; its first two frames re-encoded on the
@@ -44,7 +47,7 @@ passed):
      1080p IBP at CTU 32 (I0 P2 B1 A4 B3 A6 B5 A8 B7, every frame after P2
      bi-capable, the sweep's 8-bit entry point once per P and twice per
      bi frame, its wide one once per bi frame, some 8x8 units coded bi,
-     I0 P2 B1 A4 equal on the CPU) (slice 4); path E, per-CTB QP maps
+     I0 P2 B1 equal on the CPU) (slice 4); path E, per-CTB QP maps
      and rate control (slice 5): E0 BASELINE config 3 (720p IPPP CU16,
      quarter-pel, CBR 1250 kbps + VBV, deblocking, SAO; 1 I + 15 P), E1
      the same with AQ and row-RC and deblocking off (every P frame inline
@@ -53,7 +56,7 @@ passed):
      CU16 with AQ (bench.py's config, 4 in flight); E3 one 1088-line
      CTU-64 P frame with a map, card equal to CPU; path F, the CLI
      (homerhevc_tpu_torch.cli.main in this process, slice 6): F0 BASELINE
-     config 2 (720p IPPP CU16, full-pel ME, fixed QP 32, 1 I + 15 P; the
+     config 2 (720p IPPP CU16, full-pel ME, fixed QP 32, 1 I + 7 P; the
      sweep once per P frame, I + 2 P equal on the CPU, -o-raw equal to
      the recon, every slice parsed back by the port's SliceDataParser),
      F1 with half-pel ME, scaling lists and WPP (1 I + 7 P, I + 2 P equal
@@ -67,15 +70,27 @@ passed):
      the CPU), G2 720p all-intra CU16 AQ with deblocking (2 frames, every
      slice parsed back, the decoder's QPs those deblocking read), G3 720p
      IPPP CU32 AQ + row-RC CBR 1250 kbps, deblocking off (1 I + 7 P, I +
-     2 P equal on the CPU), the sweep once per P frame; neither jax nor
-     homerhevc_tpu may be imported;
-  5. where the time goes: one I and one P frame of slice 1, a P frame
-     with SAO and two CTU-64 P frames of path C under torch.profiler, and
-     the aten ops of a path-C P frame; one bi frame of path D counted by
-     aten op and under torch.profiler; one 1080p tree frame split by stage
-     (decide, wavefront, deblock, SAO, pack), timed and its aten ops
-     counted, then torch.profiler over the decision pass and the first 8
-     wavefront steps.
+     2 P equal on the CPU), the sweep once per P frame; path H, the host
+     P and B programs (slice 8), every slice parsed back: H0 720p IPPP
+     CU16 AQ + row-RC CBR 1250 kbps with deblocking and SAO (1 I + 3 P,
+     all host; the parsed QPs equal those deblocking read), H1 720p IPPP
+     CU16 with three references (1 I + 4 P: the first P frames on the
+     device chain, the sweep once per device P frame, then host
+     three-reference frames with CUs at ref_idx >= 1; I + 3 P equal on the
+     CPU), H2 720p IBP CU16 with AQ, deblocking off (I0 P2 B1 A4 B3 on the
+     device, the anchors with maps; the sweep once per anchor and B
+     frame; I0 P2 B1 equal on the CPU), H3 416x240 IBP CTU 32 AQ with
+     deblocking and SAO (all host, the host bi B tree, some units bi),
+     H4 416x240 IPPP CU16 intra_rdo (all host, rectangular PUs); neither
+     jax nor homerhevc_tpu may be imported;
+  5. where the time goes: one P frame of slice 1, a P frame with SAO and
+     a CTU-64 P frame of path C under torch.profiler, and the aten ops of
+     a path-C P frame; one bi frame of path D counted by aten op and under
+     torch.profiler; one 1080p tree frame split by stage (decide,
+     wavefront, deblock, SAO, pack) and timed, the aten ops of its
+     decision pass and first 16 wavefront steps counted, then
+     torch.profiler over the decision pass and the first 2 wavefront
+     steps. A "[time]" line gives each phase's seconds.
 Then the kernel table (JSON, one entry per entry point; launches are
 those of the main paths of phase 4), the card's name and power limit,
 and the result line.
@@ -102,10 +117,11 @@ F_TREE = 4                    # frames in flight, one batch
 N_SAO = 8                     # path B: 720p IPPP CU16 + SAO, 1 I + 7 P
 N_PATH_C = 8                  # path C: 1080p IPPP tree + SAO, 1 I + 7 P
 N_PATH_D = 9                  # path D: 1080p IBP CTU 32, I0 P2 B1 A4 ... B7
-N_PATH_D_CPU = 4              # I0 P2 B1 A4 re-encoded on the CPU
+N_PATH_D_CPU = 3              # I0 P2 B1 re-encoded on the CPU
 N_PATH_E = 16                 # path E0 / E1: 720p IPPP CBR, 1 I + 15 P
 N_PATH_E_CPU = 3              # E0's and E1's I + 2 P re-encoded on the CPU
-PROFILE_STEPS = 8             # wavefront steps under torch.profiler
+PROFILE_STEPS = 2             # wavefront steps under torch.profiler
+COUNT_STEPS = 16              # wavefront steps whose aten ops are counted
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64       # Hopper SM: 64 INT32 lanes per clock
 OPS_PER_PACKED_LANE = 8       # vabsdiff4 .add: 4 pairs of |a - b| + add
@@ -183,6 +199,32 @@ HOST_CELLS = {
     "all-intra CU16 AQ deblock": (dict(cu_size=16, gop_size=0,
                                        aq_strength=2.0, sao=False), 2),
 }
+# the host P cells: streams of the AQ cells' frames at 128x64 through the
+# Encoder (HOST_CFG), one per configuration whose P and B frames the JAX
+# package codes on its host programs: IPPP CU16 with intra_rdo (rect PUs,
+# merge-RD; SAO), IPPP CU16 with AQ (strength 2) and deblocking (SAO), IPPP
+# CTU 32 with intra_rdo, AQ and intra-in-P (deblocking off), IBP CTU 32
+# with AQ and deblocking (host anchors, the host bi B tree; decode order
+# I0 P2 B1 A4 B3), and three references at CU16 with AQ and deblocking, an
+# IDR at frame 4 (I0 P1 P2 P3 I4, P2 and P3 with per-CU ref_idx); digests
+# of the JAX package's Encoder on the CPU with the spec's AMVP lists
+# (tests/torch_golden.jax_host_p_stream_digests), which
+# tests/test_torch_digests.py holds to HOST_P_DIGESTS
+HOST_P_CELLS = {
+    "IPPP CU16 intra_rdo": (dict(cu_size=16, gop_size=1, intra_rdo=True,
+                                 sao=True), 3),
+    "IPPP CU16 AQ deblock": (dict(cu_size=16, gop_size=1, aq_strength=2.0,
+                                  sao=True), 3),
+    "IPPP CTU 32 AQ intra-in-P": (dict(cu_size=32, gop_size=1,
+                                       intra_rdo=True, aq_strength=2.0,
+                                       deblocking=False, intra_in_p=True),
+                                  3),
+    "IBP CTU 32 AQ deblock": (dict(cu_size=32, gop_size=2, intra_rdo=True,
+                                   aq_strength=2.0), 5),
+    "IPPP CU16 AQ deblock 3 refs": (dict(cu_size=16, gop_size=1,
+                                         aq_strength=2.0, num_ref_frames=3,
+                                         intra_period=4), 5),
+}
 GOLDEN_DIGESTS = {
     "I deblock=0": (
         "75cc9191de8a647a6a5b50d8b8a68a91c032bcd80b960d6c7e38399cab84f7fe",
@@ -238,6 +280,23 @@ HOST_DIGESTS = {
     "all-intra CU16 AQ deblock": (
         "3837883d411ca007f473eca3af172a86210090d80e44866bd1a9b7c771ae9f82",
         "21636556e29bab6df6df69fecc87132f6c7d7f0cebf09cfcf2abae816d468777"),
+}
+HOST_P_DIGESTS = {
+    "IPPP CU16 intra_rdo": (
+        "6c29a3d234f2b4419f1f206a7a73b28e65877dd7090425ca7be498eb763ac74d",
+        "24e87535e181fa5c1df68598787dcf9058fb0614d13496a2a9e5c8fe68c6bcb0"),
+    "IPPP CU16 AQ deblock": (
+        "f5ffb5212184528a0203355f7507f5ffa25dff5e3267a0ac773f533833facd21",
+        "385b7c5de61c622dc1f5990a9278b2f6a4974264fd9f8b15b4449ff16b1f48c5"),
+    "IPPP CTU 32 AQ intra-in-P": (
+        "fb18f2c51fcd9b9fdc07a7a7ced1d19cd0c23b184d393a01b05ee59ffd55f64f",
+        "cc2416e276a0b60be6890acda7b0c97efc2674f647445894e5cafe1622a4feed"),
+    "IBP CTU 32 AQ deblock": (
+        "8738763d9fdb6ea32fd0d8f30bfd16c6b3ad42dd7cb856c029457b680adc7b6d",
+        "95b34e4b199d2e8aa29ecc19217532878359691ee8cd1dca47c54985c4fb1770"),
+    "IPPP CU16 AQ deblock 3 refs": (
+        "559ecb690ad669366ee8d2dc62a251328eb6978be122b6ac9f1c90ba65809184",
+        "afa41e560ca728ff03153398bff8fab24ea37beb66ed68f99daa1e1ab22f1c42"),
 }
 
 
@@ -659,6 +718,18 @@ def host_stream_digests(encode):
     return out
 
 
+def host_p_stream_digests(encode):
+    """Digests of the host P cells' streams, encode as in
+    b_stream_digests."""
+    out = {}
+    for name, (cell, n) in HOST_P_CELLS.items():
+        kw = {**HOST_CFG, **cell}
+        efs = encode(kw, aq_frames(n, kw["width"], kw["height"]))
+        out[name] = digests(b"".join(e.annex_b() for e in efs),
+                            [e.recon[c] for e in efs for c in "yuv"])
+    return out
+
+
 def b_stream_digests(encode):
     """Digests of the B cells' streams: encode(kw, frames) returns the
     EncodedFrames of the configuration kw (keyword arguments of an
@@ -680,8 +751,9 @@ def phase_digests():
     got.update(b_stream_digests(encode))
     got.update(aq_stream_digests(encode))
     got.update(host_stream_digests(encode))
+    got.update(host_p_stream_digests(encode))
     for k, want in {**GOLDEN_DIGESTS, **B_DIGESTS, **AQ_DIGESTS,
-                    **HOST_DIGESTS}.items():
+                    **HOST_DIGESTS, **HOST_P_DIGESTS}.items():
         check(got[k] == want, f"{k}: port {got[k]} != golden {want}")
     log("[parity] 128x64 on the card: I frame (deblock off/on), P frame, "
         "intra tree (CU32 / CU64 deblock, CU32 deblock+SAO) and IPPP tree "
@@ -692,7 +764,11 @@ def phase_digests():
         "96x64 all-intra AQ and 128x64 IPPP AQ + row-RC under CBR == "
         "the JAX Encoder's digests; 128x64 host intra streams (IPPP CTU "
         "32 with a fixed-CU32 I frame, RD_FULL all-intra CTU 32, all-intra "
-        "CU16 AQ with deblocking) == the JAX Encoder's digests")
+        "CU16 AQ with deblocking) == the JAX Encoder's digests; 128x64 "
+        "host P streams (IPPP CU16 intra_rdo, IPPP CU16 AQ + deblocking, "
+        "IPPP CTU 32 AQ + intra-in-P, IBP CTU 32 AQ + deblocking, three "
+        "references with AQ + deblocking) == the JAX Encoder's digests "
+        "with the spec's AMVP lists")
 
 
 def encode_all(enc, frames):
@@ -904,8 +980,8 @@ def phase_path_c(frames):
     intra_rdo, deblocking and SAO at CTU 64, then at CTU 32 in the FAST
     mode, each after a 256x128 warm-up of the same configuration; the sweep
     runs once per P frame, some CTBs code as CU32 / CU64; the I and first P
-    frame of CTU 64 re-encoded on the CPU give the same Annex-B bytes; two
-    CTU-64 P frames under torch.profiler and one counted by aten op.
+    frame of CTU 64 re-encoded on the CPU give the same Annex-B bytes; one
+    CTU-64 P frame under torch.profiler and counted by aten op.
     Returns the sweep's launches."""
     from homerhevc_tpu_torch.api import Encoder
     from homerhevc_tpu_torch.device import LAUNCHES, reset_launches
@@ -956,10 +1032,10 @@ def phase_path_c(frames):
             log(f"[path C] one CTU-64 P frame: {ops} aten ops, {compute} "
                 f"not views")
             n_k, busy, wall = profile_window(
-                "path C CTU 64, 2 P frames (dispatch)",
-                lambda: [pe.dispatch(f, ref) for f in src])
-            log(f"[path C] CTU 64: {n_k / 2:.0f} kernels, device busy "
-                f"{busy / 2:.2f} ms per P frame")
+                "path C CTU 64, one P frame (dispatch)",
+                lambda: pe.dispatch(src[0], ref))
+            log(f"[path C] CTU 64: {n_k} kernels, device busy "
+                f"{busy:.2f} ms per P frame")
     t = time.perf_counter()
     cpu = encode_all(Encoder(p_frame_config(W_TREE, H_TREE, 64),
                              device="cpu"), frames[:2])
@@ -998,7 +1074,7 @@ def phase_path_d(frames):
     (every frame after P2 runs the bi-capable program), after a 256x128
     warm-up of the same configuration; the sweep runs once per P frame
     and three times per bi frame (twice on the source, once wide on the
-    bi target); I0 P2 B1 A4 re-encoded on the CPU give the same Annex-B
+    bi target); I0 P2 B1 re-encoded on the CPU give the same Annex-B
     bytes; one bi frame under torch.profiler and counted by aten op.
     Returns the launches of the sweep's two entry points."""
     from homerhevc_tpu_torch.api import Encoder
@@ -1059,7 +1135,7 @@ def phase_path_d(frames):
     check(b"".join(e.annex_b() for e in cpu)
           == b"".join(e.annex_b() for e in efs[:N_PATH_D_CPU]),
           "CUDA path D stream != CPU stream")
-    log(f"[path D] I0 P2 B1 A4 re-encoded on the CPU (plain path, "
+    log(f"[path D] I0 P2 B1 re-encoded on the CPU (plain path, "
         f"{time.perf_counter() - t:.1f} s): Annex-B bytes identical")
     return (launches["coarse_sweep_sads"],
             launches["coarse_sweep_sads_wide"])
@@ -1191,16 +1267,6 @@ def phase_path_e(frames, frames_1080):
         f"fps; bits/frame {np.mean([e.bits for e in efs2]):.0f}; luma PSNR "
         f"{mean2:.2f} dB; CTBs away from their slice QP "
         f"{100 * share2:.1f}%")
-    # one I frame of E2's encoder with a map under torch.profiler (phase
-    # 5 profiles the flat I frame, with deblocking on)
-    ie = enc2._pipeline._intra()
-    y, u, v = frames[0]
-    maps = [aq_qp_map(y, 16, 32, 2.0)]
-    n_k, busy, wall = profile_window(
-        "path E E2 I frame with a map (dispatch)",
-        lambda: ie.dispatch_frames([y], [u], [v], qp_maps=maps))
-    log(f"[path E] E2 I frame with a map: {n_k} kernels, device busy "
-        f"{busy:.2f} ms")
     # E3: one CTU-64 P frame with a map, card against CPU (1080 lines
     # code as 1088, padded as the pipeline pads)
     from homerhevc_tpu_torch.tools.p_frame_ops import p_frame_config
@@ -1246,6 +1312,7 @@ F0_ARGS = ["-gop_size", "1", "-motion_estimation_precision", "0", "-qp",
            "32"]                 # BASELINE config 2 with the CLI's defaults
 F1_ARGS = ["-gop_size", "1", "-motion_estimation_precision", "1",
            "-scaling_lists", "1", "-wpp", "1"]
+N_PATH_F0 = 8                 # F0: 1 I + 7 P
 N_PATH_F1 = 8                 # F1: 1 I + 7 P
 N_PATH_F_CPU = 3              # F0's and F1's I + 2 P re-encoded on the CPU
 N_PATH_F_RD = 8               # measure_rd's frames of F0's clip
@@ -1267,7 +1334,7 @@ def phase_path_f(frames):
     """Path F: the CLI, homerhevc_tpu_torch.cli.main, in this process so
     that the launch counters count it. F0 is BASELINE config 2 (720p
     IPPP CU16, full-pel ME, fixed QP 32; deblocking, SAO and sign hiding
-    at the CLI's defaults), 1 I + 15 P with -psnr and -profile: the sweep
+    at the CLI's defaults), 1 I + 7 P with -psnr and -profile: the sweep
     once per P frame, its I + 2 P re-encoded by the CLI on the CPU
     (identical bytes and recon), the -o-raw file equal to the frames'
     recon, every slice of the stream parsed back by the port's
@@ -1314,7 +1381,7 @@ def _path_f(frames, tmp):
             return f.read()
 
     sweeps = 0
-    for label, tag, args, n in (("F0 config 2", "f0", F0_ARGS, N_IPPP),
+    for label, tag, args, n in (("F0 config 2", "f0", F0_ARGS, N_PATH_F0),
                                 ("F1 config 2 + half-pel + scaling lists + "
                                  "WPP", "f1", F1_ARGS, N_PATH_F1)):
         PROFILER.reset()
@@ -1390,7 +1457,7 @@ def _path_f(frames, tmp):
     from homerhevc_tpu_torch.state import reference_from_numpy
     from homerhevc_tpu_torch.tools.p_frame_ops import count_p_frame
     cfg0 = cli.config_from_args(cli.build_parser().parse_args(
-        io_args("f0", N_IPPP) + F0_ARGS))
+        io_args("f0", N_PATH_F0) + F0_ARGS))
     pe = TorchInterEncoder(ParamSets.from_config(cfg0), cfg0, device=DEV)
     p_src, p_ref = frames[2], reference_from_numpy(frames[1], DEV)
     pe.encode_frame(p_src, p_ref)                           # warm-up
@@ -1675,13 +1742,208 @@ def phase_path_g(frames, frames_1080, frames_g1):
     return sweeps
 
 
+N_PATH_H = (4, 5, 5, 5, 4)     # H0 1 I + 3 P, H1 1 I + 4 P, H2 and H3 I0 P2
+                               # B1 A4 B3, H4 1 I + 3 P
+N_PATH_H_CPU = (4, 3)          # H1's I + 3 P, H2's I0 P2 B1 on the CPU
+
+
+def h_config(w, h, **kw):
+    """Path H's configurations: QP 32, sign hiding, deblocking, one IDR
+    (kw: each cell's changes)."""
+    from homerhevc_tpu_torch.config import EncoderConfig
+    return EncoderConfig(**{**dict(
+        width=w, height=h, qp=32, gop_size=1, intra_period=0,
+        sign_hiding=True, deblocking=True, sao=False,
+        reinit_gop_on_scene_change=False), **kw})
+
+
+def run_path_h(label, cfg, frames, types, sweeps, n_cpu=0):
+    """Encode frames with cfg on the card (decode order types), the sweep
+    launched `sweeps` times; every slice parsed back by the port's
+    SliceDataParser into what was serialized, and where deblocking reads
+    a per-CTB QP map, the parsed decoder-view QPs equal to those it read;
+    the first n_cpu frames re-encoded on the CPU give the same bytes.
+    Logs fps, ms per frame and the host scopes. Returns (EncodedFrames,
+    FrameDescs) in decode order."""
+    from homerhevc_tpu_torch.api import Encoder
+    from homerhevc_tpu_torch.device import LAUNCHES, reset_launches
+    from homerhevc_tpu_torch.hevc.deblock import decoder_qp_map8
+    from homerhevc_tpu_torch.hevc.parse import (SerializedSlices,
+                                                desc_mismatches,
+                                                parse_slice_nal)
+    from homerhevc_tpu_torch.utils.profiler import PROFILER
+    enc = Encoder(cfg)
+    PROFILER.reset()
+    reset_launches()
+    with SerializedSlices() as spy:
+        t = time.perf_counter()
+        efs = encode_all(enc, frames)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    launches = dict(LAUNCHES)
+    check(launches["coarse_sweep_sads"] == sweeps, launches)
+    check("".join(e.frame_type for e in efs) == types,
+          [e.frame_type for e in efs])
+    by_poc = sorted(efs, key=lambda e: e.poc)
+    mean_psnr = check_frames(by_poc, frames, [e.frame_type for e in by_poc],
+                             18.0 if cfg.bitrate_mode else 25.0)
+    descs = [d for _, d, _, _ in spy.slices]
+    steps = [b - a for a, b in zip([t] + spy.emitted, spy.emitted)]
+    log(f"[path H] {label}: {len(frames)} frames ({types}) in {dt:.3f} s "
+        f"= {len(frames) / dt:.4f} fps; per frame (decode order) "
+        f"{', '.join(f'{s:.2f}' for s in steps)} s; bits/frame "
+        f"{np.mean([e.bits for e in efs]):.0f}; luma PSNR {mean_psnr:.2f} "
+        f"dB; coarse sweep launches {launches['coarse_sweep_sads']}")
+    log(f"[path H] {label} host scopes:\n" + PROFILER.report())
+    t = time.perf_counter()
+    qp_checked = 0
+    for (ps, desc, sao, nal), e in zip(spy.slices, efs):
+        _, p = parse_slice_nal(ps, nal)
+        bad = desc_mismatches(p.d, desc, p.sao, sao)
+        check(not bad, f"{label}: the parsed slice of POC {e.poc} differs "
+              f"in {bad}")
+        if desc.qp_map is not None and ps.deblocking_enabled:
+            qp8 = decoder_qp_map8(desc, ps, e.avg_qp, wpp=ps.wpp)
+            check(np.array_equal(p.d.qp_map.astype(np.int32), qp8),
+                  f"{label}: the decoder's QPs differ from those "
+                  f"deblocking read (POC {e.poc})")
+            qp_checked += 1
+    log(f"[path H] {label}: all {len(efs)} slices parsed back "
+        f"({time.perf_counter() - t:.1f} s): modes, MVs, reference "
+        f"indices, levels and SAO equal; the decoder's QPs equal those "
+        f"deblocking read in {qp_checked} slices")
+    if n_cpu:
+        t = time.perf_counter()
+        cpu = first_frames(Encoder(cfg, device="cpu"), frames, n_cpu)
+        check(b"".join(e.annex_b() for e in cpu)
+              == b"".join(e.annex_b() for e in efs[:n_cpu]),
+              f"CUDA path H {label} stream != CPU stream")
+        log(f"[path H] {label}: the first {n_cpu} frames re-encoded on the "
+            f"CPU (plain path, {time.perf_counter() - t:.1f} s): Annex-B "
+            f"bytes identical")
+    return efs, descs
+
+
+def h0_frames(n):
+    """H0's clip: the AQ cells' frames at 720p (a flat band over the top
+    quarter) with a flat left column too, so that quantization groups
+    below the band code nothing and keep the QP predicted (G2's)."""
+    frames = aq_frames(n, W, H)
+    for y, u, v in frames:
+        y[:, :64] = 90
+        for c in (u, v):
+            c[:H // 8] = 128
+            c[:, :32] = 128
+    return frames
+
+
+def h1_frames(frames):
+    """H1's clip: the bench clip with the luma of every odd frame lifted
+    by 12 (a flicker: the picture two back often predicts better than
+    the one before)."""
+    out = []
+    for t, (y, u, v) in enumerate(frames):
+        if t % 2:
+            y = np.clip(y.astype(np.int32) + 12, 0, 255).astype(np.uint8)
+        out.append((y, u, v))
+    return out
+
+
+def phase_path_h(frames):
+    """Path H on the card: the host P and B programs (slice 8), each
+    through api.Encoder, every slice parsed back. H0: 720p IPPP CU16 with
+    AQ (strength 2) and row-RC under CBR 1250 kbps, deblocking and SAO (1
+    I + 3 P, all on the host; h0_frames' flat areas: some units deblocked
+    at the predicted QP, the parsed QPs equal those deblocking read). H1:
+    720p IPPP CU16 with three references, QP 32 (1 I + 4 P on the
+    flickering h1_frames: I0, P1, P2 on the device chain, the sweep once
+    per device P frame; P3, P4 three-reference frames on the host with
+    some CUs at ref_idx 1 or 2; I + 3 P equal on the CPU). H2: 720p IBP
+    CU16 with AQ, deblocking off (I0 P2 B1 A4 B3 on the device: the
+    anchors with their maps, the B frames without; the sweep once per
+    anchor and B frame; I0 P2 B1 equal on the CPU). H3: 416x240 IBP CTU
+    32 with intra_rdo, AQ, deblocking and SAO (all host: the host tree I
+    frame, host anchors, the host bi B tree; some 8x8 units bi). H4:
+    416x240 IPPP CU16 with intra_rdo, deblocking and SAO (1 I + 3 P, all
+    host; rectangular PUs in the P frames). Returns the sweep's
+    launches."""
+    from homerhevc_tpu_torch.config import BitrateMode
+    t_h = time.perf_counter()
+    sweeps = 0
+    # H0
+    n = N_PATH_H[0]
+    cfg = h_config(W, H, cu_size=16, aq_strength=2.0, rc_ctu=True, sao=True,
+                   bitrate_mode=BitrateMode.CBR, bitrate_kbps=1250,
+                   vbv_size=1.0)
+    efs, descs = run_path_h("H0 720p IPPP CU16 AQ + row-RC CBR + deblocking "
+                            "+ SAO, host", cfg, h0_frames(n), "I" + "P" * (n - 1),
+                            0)
+    share = qp_off_share(descs, efs)
+    check(share > 0 and all(d.qp_map is not None for d in descs),
+          "H0: a frame without its map")
+    kbps = float(np.sum([e.bits for e in efs])) / n * cfg.frame_rate / 1e3
+    log(f"[path H] H0: {kbps:.1f} kbps against {cfg.bitrate_kbps}; slice "
+        f"QPs {[e.avg_qp for e in efs]}; CTBs away from their slice QP "
+        f"{100 * share:.1f}%")
+    # H1
+    n = N_PATH_H[1]
+    efs, descs = run_path_h("H1 720p IPPP CU16 three references",
+                            h_config(W, H, cu_size=16, num_ref_frames=3),
+                            h1_frames(frames[:n]), "I" + "P" * (n - 1), 2,
+                            N_PATH_H_CPU[0])
+    sweeps += 2
+    check([d.ref_idx is not None for d in descs]
+          == [False, False, False, True, True],
+          "H1: not P3 and P4 alone three-reference frames")
+    far = [float(np.mean(d.ref_idx[d.pred_mode == 0] >= 1))
+           for d in descs[3:]]
+    check(max(far) > 0, "H1: no CU at ref_idx 1 or 2")
+    log(f"[path H] H1: the inter 8x8 units of P3 and P4 at ref_idx >= 1: "
+        f"{', '.join(f'{100 * x:.1f}%' for x in far)}")
+    # H2
+    efs, descs = run_path_h("H2 720p IBP CU16 AQ, deblocking off, device",
+                            h_config(W, H, cu_size=16, gop_size=2, num_b=1,
+                                     aq_strength=2.0, deblocking=False),
+                            aq_frames(N_PATH_H[2], W, H), "IPBPB", 4,
+                            N_PATH_H_CPU[1])
+    sweeps += 4
+    check([d.qp_map is None for d in descs]
+          == [False, False, True, False, True],
+          "H2: not the anchors alone with their maps")
+    # H3
+    efs, descs = run_path_h(
+        "H3 416x240 IBP CTU 32 intra_rdo AQ + deblocking + SAO, host",
+        h_config(W_G1, H_G1, cu_size=32, gop_size=2, num_b=1,
+                 intra_rdo=True, aq_strength=2.0, sao=True),
+        aq_frames(N_PATH_H[3], W_G1, H_G1), "IPBPB", 0)
+    bi = [float(np.mean(d.inter_dir == 3)) for d in descs[2::2]]
+    check(max(bi) > 0, "H3: no 8x8 unit coded bi")
+    log(f"[path H] H3: 8x8 units coded bi in B1, B3: "
+        f"{', '.join(f'{100 * x:.1f}%' for x in bi)}")
+    # H4
+    n = N_PATH_H[4]
+    efs, descs = run_path_h("H4 416x240 IPPP CU16 intra_rdo, host",
+                            h_config(W_G1, H_G1, cu_size=16, intra_rdo=True,
+                                     sao=True),
+                            bench_frames(n, w=W_G1, h=H_G1),
+                            "I" + "P" * (n - 1), 0)
+    rect = [float(np.mean(d.inter_part != 0)) for d in descs[1:]]
+    check(max(rect) > 0, "H4: no rectangular PU in the P frames")
+    log(f"[path H] H4: 8x8 units in rectangular PUs in the P frames: "
+        f"{', '.join(f'{100 * x:.1f}%' for x in rect)}")
+    log(f"[path H] H0-H4 took {time.perf_counter() - t_h:.1f} s")
+    return sweeps
+
+
 def phase_tree_stages(frame):
     """Where path A's time goes: one 1080p CU32 tree frame split by stage
     (decide, wavefront, deblock, SAO, pack), first timed (the card
-    synchronised around each stage), then its aten ops counted by a
+    synchronised around each stage), then the aten ops of its decision
+    pass and of its first COUNT_STEPS wavefront steps counted by a
     TorchDispatchMode (all ops, and those that are not views, which bounds
-    the kernel launches); then torch.profiler over the decision pass and
-    over the first PROFILE_STEPS wavefront steps."""
+    the kernel launches; every step runs the same ops); then
+    torch.profiler over the decision pass and over the first
+    PROFILE_STEPS wavefront steps."""
     from collections import Counter
 
     from homerhevc_tpu_torch.api import Encoder
@@ -1714,21 +1976,23 @@ def phase_tree_stages(frame):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     timed = dict(seconds)
+    n_count = min(COUNT_STEPS, enc.nsteps)
     with counter:
-        enc._frame_impl(y, u, v, qp)
+        d8, m8 = enc._decide_impl(y, u, v, qp)
+        enc._wavefront(y, u, v, qp, d8, m8, n_steps=n_count)
     torch.cuda.synchronize()
     ops, compute = counter.ops, counter.compute
-    total, n_compute = sum(ops.values()), sum(compute.values())
     names = list(stages.values())
     log(f"[stages] 1080p CU32 tree frame alone: {wall:.3f} s; "
         + ", ".join(f"{k} {timed[k]:.3f} s ({100 * timed[k] / wall:.1f}%)"
                     for k in names))
-    log(f"[stages] the same frame: {total} aten ops, {n_compute} not views; "
-        + ", ".join(f"{k} {ops[k]} / {compute[k]}" for k in names
-                    + ["other"])
-        + f"; wavefront {ops['wavefront'] / enc.nsteps:.0f} ops "
-        f"({compute['wavefront'] / enc.nsteps:.0f} not views) per step over "
-        f"{enc.nsteps} steps of {enc.nslot} CTB32 slots")
+    per_step = ops["wavefront"] / n_count
+    log(f"[stages] the same frame's aten ops (all / not views): decide "
+        f"{ops['decide']} / {compute['decide']}; the first {n_count} "
+        f"wavefront steps {ops['wavefront']} / {compute['wavefront']}, "
+        f"{per_step:.0f} ops ({compute['wavefront'] / n_count:.0f} not "
+        f"views) per step of {enc.nslot} CTB32 slots, "
+        f"{per_step * enc.nsteps:.0f} over its {enc.nsteps} steps")
     for attr in stages:
         delattr(enc, attr)
     d8, m8 = enc._decide_impl(y, u, v, qp)
@@ -1766,10 +2030,12 @@ def profile_window(label, fn):
 
 
 def phase_profile(frames):
-    """One I and one P frame of slice 1, and a P frame with SAO (slice 2),
-    under torch.profiler: kernel launches and device time against wall
-    time (the profiler's own cost inflates the wall time; phase 4 has the
-    unprofiled times)."""
+    """One P frame of slice 1 and a P frame with SAO (slice 2) under
+    torch.profiler: kernel launches and device time against wall time
+    (the profiler's own cost inflates the wall time; phase 4 has the
+    unprofiled times). The CU16 I frame is not profiled: the profiler's
+    processing of its ~118 k kernel events takes about a minute of the
+    script's limit."""
     from homerhevc_tpu_torch.config import EncoderConfig
     from homerhevc_tpu_torch.engine.inter_encoder import TorchInterEncoder
     from homerhevc_tpu_torch.engine.intra_encoder import TorchIntraEncoder
@@ -1784,8 +2050,6 @@ def phase_profile(frames):
     _, ry, ru, rv = ie.encode_frame(y, u, v, 32)
     ref = reference_from_numpy((ry, ru, rv), DEV)
     pe.encode_frame(frames[1], ref)
-    profile_window("I frame (dispatch)",
-                   lambda: ie.dispatch_frames([y], [u], [v]))
     profile_window("P frame (dispatch)", lambda: pe.dispatch(frames[1], ref))
     cfg_sao = EncoderConfig(width=W, height=H, cu_size=16, gop_size=1, qp=32,
                             sign_hiding=True, deblocking=True, sao=True)
@@ -1803,24 +2067,36 @@ def main():
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}; "
         f"{smi('name,power.limit,clocks.max.sm')}")
+    t0 = time.perf_counter()
+
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        now = time.perf_counter()
+        log(f"[time] {label}: {now - t:.1f} s (at {now - t0:.1f} s)")
+        return out
     frames = bench_frames(N_IPPP)
-    phase_build()
+    timed("phase 1 build", phase_build)
     g1 = g1_frames(N_PATH_G1)
     g1_coded = [(np.pad(y, ((0, H_G1_CODED - H_G1), (0, 0)), mode="edge"),
                  u, v) for y, u, v in g1[:2]]
-    rows = phase_kernel(frames, bench_frames(2, w=W_TREE, h=1152), g1_coded)
-    phase_digests()
-    launches = phase_main_path(frames)
+    rows = timed("phase 2 kernel", phase_kernel, frames,
+                 bench_frames(2, w=W_TREE, h=1152), g1_coded)
+    timed("phase 3 digests", phase_digests)
+    launches = timed("main paths", phase_main_path, frames)
     tree_frames = bench_frames(N_PATH_D, w=W_TREE, h=H_TREE)
-    phase_tree_path(tree_frames[:F_TREE])
-    sao_launches = phase_sao_ippp(frames)
-    path_c_launches = phase_path_c(tree_frames[:N_PATH_C])
-    path_d_launches, wide_launches = phase_path_d(tree_frames)
-    path_e_launches = phase_path_e(frames, tree_frames[:2])
-    path_f_launches = phase_path_f(frames)
-    path_g_launches = phase_path_g(frames, tree_frames[:N_PATH_G], g1)
-    phase_profile(frames)
-    phase_tree_stages(tree_frames[0])
+    timed("path A", phase_tree_path, tree_frames[:F_TREE])
+    sao_launches = timed("path B", phase_sao_ippp, frames)
+    path_c_launches = timed("path C", phase_path_c, tree_frames[:N_PATH_C])
+    path_d_launches, wide_launches = timed("path D", phase_path_d,
+                                           tree_frames)
+    path_e_launches = timed("path E", phase_path_e, frames, tree_frames[:2])
+    path_f_launches = timed("path F", phase_path_f, frames)
+    path_g_launches = timed("path G", phase_path_g, frames,
+                            tree_frames[:N_PATH_G], g1)
+    path_h_launches = timed("path H", phase_path_h, frames)
+    timed("phase 5 profile", phase_profile, frames)
+    timed("phase 5 tree stages", phase_tree_stages, tree_frames[0])
     for name in ("jax", "homerhevc_tpu"):
         check(name not in sys.modules, f"{name} was imported")
     log("[isolation] neither jax nor homerhevc_tpu was imported")
@@ -1829,7 +2105,7 @@ def main():
             ("coarse_sweep_sads", "720p R=16",
              launches["coarse_sweep_sads"] + sao_launches + path_c_launches
              + path_d_launches + path_e_launches + path_f_launches
-             + path_g_launches),
+             + path_g_launches + path_h_launches),
             ("coarse_sweep_sads_wide", "wide 1088 lines R=24",
              wide_launches)):
         err, ms, plain_ms, bound_ms, bound_by = rows[row]

@@ -7,11 +7,12 @@ host tier too: config.py, hevc/*, native/* (the C++ CABAC, built with g++
 into _build/ at first use), engine/rate_control.py, utils/* and
 engine/pipeline.py are copies of the JAX package's modules at the same
 paths, and hevc/{intra_pred,inter_syntax,intra_tree}.py hold what the
-device path needs from its golden/ oracle. The I frames the JAX package
-codes on golden/ take copies of those host programs
-(hevc/{transform,quantize,intra_pred,intra_frame,intra_tree,deblock}.py),
-chosen by configuration as the JAX pipeline chooses them; a
-configuration the port does not cover raises NotImplementedError.
+device path needs from its golden/ oracle. The I, P and B frames the
+JAX package codes on golden/ take copies of those host programs
+(hevc/{transform,quantize,intra_pred,intra_frame,intra_tree,deblock,
+interp,rd_bits,inter_frame}.py), chosen by configuration as the JAX
+pipeline chooses them; more than one device, the one configuration the
+port does not cover, raises NotImplementedError.
 
 The coarse motion-search SAD sweep, the one Pallas kernel of the JAX
 package, is a hand-written CUDA kernel (csrc/me_sad.cu) built with nvcc at

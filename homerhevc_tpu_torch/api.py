@@ -5,8 +5,9 @@
     for ef in enc.flush(): ...
     stream = b"".join(ef.annex_b() for ef in frames)
 
-A configuration the port does not cover yet raises NotImplementedError
-when the Encoder is built (engine/pipeline.py unported).
+More than one device (num_devices > 1), the one configuration the port
+does not cover yet, raises NotImplementedError when the Encoder is built
+(engine/pipeline.py unported).
 """
 
 from __future__ import annotations

@@ -7,9 +7,9 @@ Usage:
     python -m homerhevc_tpu_torch.cli -i in.yuv -o out.265 \\
         -widthxheight 1280x720 ... [-device cuda|cpu]
 
-The encoder runs on the card unless -device cpu is given. A configuration
-the port does not cover yet raises NotImplementedError naming its ROADMAP
-item before any output file is opened.
+The encoder runs on the card unless -device cpu is given. Every
+configuration these arguments can express encodes (the port refuses only
+more than one device, which the CLI cannot ask for).
 """
 
 from __future__ import annotations

@@ -1,61 +1,66 @@
 """TorchPipeline: GOP/POC flow, frame dispatch to the port's device
-encoders, SAO, NAL assembly. Written from homerhevc_tpu/engine/pipeline.py
-EncoderPipeline, restricted to the configurations the port covers:
+encoders and host programs, SAO, NAL assembly. Written from
+homerhevc_tpu/engine/pipeline.py EncoderPipeline, for every configuration
+of one device:
 
-  - I frames of every configuration: on the device programs below where
-    the JAX package runs its own (intra_device_ok, the twin of its
-    _tpu_ok), else on the host programs it runs there
-    (_analyze_intra_host: hevc/intra_frame.py at a fixed CU size with the
-    per-CTB AQ map, hevc/intra_tree.py's tree with intra_rdo at CTU 32 /
-    64 and RD_FULL, hevc/deblock.py with the decoder-view QP map), chosen
-    by configuration alone: CU32 / CU64 without intra_rdo, intra_rdo at
-    CU16, RD_FULL, per-CTB QP maps with deblocking on or with the tree.
-    Their P and B frames run on the device P programs (inter_device_ok,
-    the twin of _tpu_inter_ok), each predicting from the host recon as SAO
-    filtered it, uploaded once;
+  - I frames: on the device programs below where the JAX package runs
+    its own (intra_device_ok, the twin of its _tpu_ok), else on the host
+    programs it runs there (_analyze_intra_host: hevc/intra_frame.py at a
+    fixed CU size with the per-CTB AQ map, hevc/intra_tree.py's tree with
+    intra_rdo at CTU 32 / 64 and RD_FULL, hevc/deblock.py with the
+    decoder-view QP map), chosen by configuration alone;
+  - P and B frames: on the device P programs where the JAX package runs
+    its own (inter_device_ok, the twin of _tpu_inter_ok), each predicting
+    from the recon as SAO filtered it (a host recon uploaded once), else
+    inline on the host programs it runs there (_analyze_inter_host:
+    hevc/inter_frame.py's CU32 / CU64 tree at CTU 32 / 64, else CU16, with
+    merge-RD and rectangular PUs, the per-CTB map, deblocking inside; its
+    bi B tree for IBP's B frames at CTU 32): intra_rdo at CU16, per-CTB
+    QP maps with deblocking on or with intra-in-P at CU32 / CU64;
   - all-intra CU16 (gop_size 0): frames are batched num_frames_in_flight
     at a time, with the upload / dispatch / background fetch pipeline;
-  - all-intra CU32 / CU64 with intra_rdo (gop_size 0, the fast decision,
-    no per-CTB QP maps): the intra CU-tree encoder, batched the same way,
-    with deblocking and SAO inside its device program;
-  - IPPP (gop_size 1) at CU16, and at CU32 / CU64 with intra_rdo (the
-    CU tree: the intra tree encoder's I frames and the P program's
-    CU32 / CU64 layers), in every performance mode, with the FAR motion
-    search level (me_range > 32) and intra-in-P: the depth-2 P chain,
-    whose motion search reads the device-resident recon of the previous
-    frame; periodic and scene-change IDRs. With gpb or num_ref_frames 2
-    at CTU 32, every P frame after the second bi-predicts from t-1 and
-    t-2 (generalized-B slices, t-2 in list 1 by l1_swap);
-  - IBP (gop_size 2, num_b 1) at the same CU sizes: anchors at even
-    display positions, each B between them coded after its later anchor
-    (decode order I0 P2 B1 A4 B3 ...). At CTU 32 the B frames bi-predict
-    from both anchors and the anchors from the third on from the two
-    previous anchors; elsewhere B frames predict from the earlier anchor
-    alone. Search range 24.
+    all-intra CU32 / CU64 with intra_rdo (the fast decision, no per-CTB QP
+    maps): the intra CU-tree encoder, batched the same way, with
+    deblocking and SAO inside its device program;
+  - IPPP (gop_size 1) on the device: the depth-2 P chain, whose motion
+    search reads the device-resident recon of the previous frame, in
+    every performance mode, with the FAR motion search level (me_range >
+    32) and intra-in-P; periodic and scene-change IDRs. With gpb or
+    num_ref_frames 2 at CTU 32, every P frame after the second
+    bi-predicts from t-1 and t-2 (generalized-B slices, t-2 in list 1 by
+    l1_swap). With num_ref_frames > 2, once the reference queue holds two
+    pictures every P frame up to the next IDR predicts from all of them
+    (per-CU ref_idx_l0, CU16, on the host: _mref_frame), the device chain
+    drained and dropped first;
+  - IBP (gop_size 2, num_b 1): anchors at even display positions, each B
+    between them coded after its later anchor (decode order I0 P2 B1 A4
+    B3 ...). At CTU 32 the B frames bi-predict from both anchors and,
+    on the device, the anchors from the third on from the two previous
+    anchors; elsewhere B frames predict from the earlier anchor alone.
+    Search range 24.
 
 Per-CTB QP maps (AQ, and row-RC under CBR / VBR; cu_qp_delta with the
 quantization group a CTB): an AQ map per I frame (the batched CU16 path
-carries one per frame; the host tree takes none, as in the JAX package),
-the AQ map plus the row-RC offsets per P frame, at CU16 and in the CU32 /
-CU64 P programs with deblocking off, each P frame emitted before the next
-is dispatched. All-intra, maps run with deblocking on too (host I
-frames).
+carries one per frame; the tree takes none, as in the JAX package), the
+AQ map plus the row-RC offsets per P frame and IBP anchor, each emitted
+before the next is dispatched. The device programs give B frames no map,
+the host programs give them one, as the JAX package's do.
 
 SAO: the tree and P programs decide and apply SAO on the device and ship
-its parameters on the wire. The CU16 intra program has none, and for its
-frames SAO is decided and applied on the host (hevc/sao.py sao_decide),
-as the JAX package does for the same frames: this is that package's own
-behaviour, not a fallback, and it keeps the two streams equal (a device
-decision there would choose other, equally legal parameters). The P
-chain then predicts from the filtered picture.
+its parameters on the wire. The CU16 intra program and the host programs
+have none, and for their frames SAO is decided and applied on the host
+(hevc/sao.py sao_decide), as the JAX package does for the same frames:
+this is that package's own behaviour, not a fallback, and it keeps the
+two streams equal (a device decision there would choose other, equally
+legal parameters). The next frame then predicts from the filtered
+picture.
 
 Rate control, WPP substreams and the native CABAC serializer work as in
-the JAX package. The host P programs are not ported: a configuration
-whose P frames the JAX package codes on its numpy golden path (intra_rdo
-at CU16 in IPPP, maps with deblocking in IPPP, num_ref_frames > 2), and
-IBP with maps or more than one device, raises NotImplementedError when
-the pipeline is built, naming the ROADMAP.md Queue 1 item that will bring
-it. No route depends on the device found or on a failure.
+the JAX package (multi-reference slices and B slices with rectangular PUs
+take the Python serializer, as there). More than one device raises
+NotImplementedError when the pipeline is built, naming the ROADMAP.md
+Queue 1 item that will bring it. No route depends on the device found or
+on a failure.
 """
 
 from __future__ import annotations
@@ -80,6 +85,9 @@ from homerhevc_tpu_torch.hevc.headers import (
     SLICE_B, SLICE_I, SLICE_P, ParamSets, SliceParams, write_pps,
     write_slice_header, write_sps, write_vps,
 )
+from homerhevc_tpu_torch.hevc.inter_frame import (encode_b_frame_tree,
+                                                  encode_inter_frame,
+                                                  encode_inter_frame_tree)
 from homerhevc_tpu_torch.hevc.intra_frame import encode_intra_frame
 from homerhevc_tpu_torch.hevc.intra_tree import (decide_intra_tree,
                                                  encode_intra_tree_frame)
@@ -90,8 +98,8 @@ from homerhevc_tpu_torch.utils.profiler import PROFILER
 
 def _mref(desc, refs_before, poc):
     """(num_ref_l0, ref_dists_l0) for a multi-reference slice, or (1, None)
-    when the desc carries no per-CU ref_idx (every slice the port codes:
-    two references ride the two lists)."""
+    when the desc carries no per-CU ref_idx (two references ride the two
+    lists)."""
     if getattr(desc, "ref_idx", None) is None:
         return 1, None
     return len(refs_before), tuple(poc - rp for rp in refs_before)
@@ -160,29 +168,11 @@ def inter_device_ok(cfg: EncoderConfig) -> bool:
 def unported(cfg: EncoderConfig) -> str | None:
     """Why `cfg` (padded to whole CTUs) lies outside the configurations the
     port covers, and the ROADMAP.md Queue 1 item that brings it; None when
-    it is covered. I frames of every configuration are covered: the
-    device programs where the JAX package runs its own, the host programs
-    elsewhere. P and B frames are covered where the JAX package runs its
-    device P programs (inter_device_ok)."""
-    inter = cfg.gop_size != 0
-    checks = (
-        (inter and not inter_device_ok(cfg),
-         "P frames the JAX package encodes only on its numpy golden path "
-         "(intra_rdo at CU16; per-CTB QP maps (AQ, row-RC) with deblocking "
-         "on, or with intra-in-P at CU32 / CU64: the host P programs, "
-         "Queue 1 item 7, slice 8)"),
-        (_maps(cfg) and inter and cfg.num_b >= 1,
-         "per-CTB QP maps (AQ, row-RC) with B frames, IBP's anchors taking "
-         "maps and its B frames none (Queue 1 item 4, IBP with maps)"),
-        (inter and cfg.num_ref_frames > 2,
-         "multi-reference P frames with num_ref_frames > 2, which the JAX "
-         "package codes only on its numpy golden path (Queue 1 item 7, "
-         "slice 8)"),
-        (cfg.num_devices != 1, "multi-GPU encoding (Queue 1 item 6)"),
-    )
-    for bad, what in checks:
-        if bad:
-            return what
+    it is covered. Every configuration of one device is covered: I, P and
+    B frames on the device programs where the JAX package runs its own,
+    else on the host programs it runs there."""
+    if cfg.num_devices != 1:
+        return "multi-GPU encoding (Queue 1 item 6)"
     return None
 
 
@@ -269,6 +259,14 @@ class TorchPipeline:
         # which program codes the I frames: the device's, or the host's
         # (hevc/intra_frame.py, hevc/intra_tree.py), by configuration alone
         self._intra_device = intra_device_ok(cfg)
+        # and which codes the P and B frames: the device P programs, or
+        # the host's (hevc/inter_frame.py), which code every
+        # multi-reference frame
+        self._inter_device = inter_device_ok(cfg)
+        # the reference pictures of a multi-reference P frame (filtered
+        # recon, most recent first, at most num_ref_frames; never across
+        # an IDR)
+        self._ref_queue: list = []
         self._intra_enc = None
         self._inter_enc = None
 
@@ -520,6 +518,10 @@ class TorchPipeline:
                 rv = sao_apply_component(rv, sao_params, 2, ctu // 2)
         if is_ref:
             self._last_recon = (ry, ru, rv)
+            if self.cfg.gop_size != 0:
+                q = [] if slice_type == SLICE_I else self._ref_queue
+                self._ref_queue = ([(ry, ru, rv)] + q)[
+                    :max(1, self.cfg.num_ref_frames)]
         nals = []
         if slice_type == SLICE_I:
             self.gop_poc = 0
@@ -615,6 +617,21 @@ class TorchPipeline:
             self._ref, self._ref_prev = self._last_recon, None
             yield ef
             return
+        if self.cfg.num_ref_frames > 2 and len(self._ref_queue) >= 2:
+            # multi-reference L0 (more than two references): per-CU
+            # reference choice and ref_idx_l0 on the host, once two
+            # references exist; the frames before ride the device chain
+            yield from self._drain_p_pending()
+            yield from self._mref_frame((y, u, v), qp)
+            return
+        if not self._inter_device:
+            # the host P programs, inline (a configuration whose P frames
+            # no device program codes)
+            desc, ry, ru, rv = self._inter_frame((y, u, v), qp)
+            yield self._emit(desc, ry, ru, rv, (y, u, v), slice_type=SLICE_P,
+                             qp=qp, refs_before=self._p_refs())
+            self._ref, self._ref_prev = self._last_recon, None
+            return
         # P chain: dispatch frame i on the device (its ME reads the
         # device-resident recon of frame i-1), then do frame i-1's host half
         # (download, syntax selection, CABAC) while the device runs. Depth
@@ -646,6 +663,39 @@ class TorchPipeline:
                                      else 2):
             yield from self._drain_p_pending(one=True)
 
+    def _p_refs(self):
+        """The reference POCs of an IPPP P slice that predicts from the
+        previous picture alone: that picture, and with num_ref_frames > 2
+        every picture of the reference queue, which the multi-reference
+        frames after it predict from (a picture left out of a slice's
+        reference picture set leaves the decoder's buffer). The JAX
+        package lists the previous picture alone, so its depth-2 chain's
+        second P frame drops the I frame the first multi-reference frame
+        then reads, and its stream does not decode (ROADMAP Queue 3);
+        this differs from it in that slice header only."""
+        n = len(self._ref_queue) if self.cfg.num_ref_frames > 2 else 1
+        return tuple(self.gop_poc - 1 - i for i in range(max(1, n)))
+
+    def _mref_frame(self, src, qp) -> Iterator:
+        """A P frame predicting from every picture of the reference queue
+        (nearest first, POC distances 1, 2, ...): CU16, per-CU ref_idx_l0,
+        the Python serializer (the native one codes one reference). The
+        device chain ends here: the frames up to the next IDR are all of
+        this kind."""
+        nref = min(self.cfg.num_ref_frames, len(self._ref_queue))
+        refs = [tuple(np.asarray(pl, np.int32) for pl in r)
+                for r in self._ref_queue[:nref]]
+        dists = tuple(range(1, nref + 1))
+        with PROFILER.scope("analyze_inter_mref"):
+            desc, ry, ru, rv = encode_inter_frame(
+                self.ps, src, refs[0], qp, cu_size=16,
+                search=self._inter_search_range(), avg_dist=self.avg_dist,
+                ref_list=refs, ref_dists=dists)
+        poc = self.gop_poc
+        yield self._emit(desc, ry, ru, rv, src, slice_type=SLICE_P, qp=qp,
+                         refs_before=tuple(poc - d for d in dists))
+        self._ref, self._ref_prev = self._last_recon, None
+
     def _drain_p_pending(self, one: bool = False) -> Iterator:
         while self._p_pendings:
             out, src, qp, gpb, qp_map = self._p_pendings.pop(0)
@@ -659,7 +709,7 @@ class TorchPipeline:
                                  l1_swap=True)
             else:
                 yield self._emit(desc, ry, ru, rv, src, slice_type=SLICE_P,
-                                 qp=qp)
+                                 qp=qp, refs_before=self._p_refs())
             if one:
                 return
 
@@ -667,11 +717,31 @@ class TorchPipeline:
 
     def _inter_frame(self, fr, qp, ref=None, is_b=False):
         """One P frame (or, with is_b, a B frame of uni-L0 CUs) coded
-        inline against ref, by default the last reference picture."""
+        inline against ref, by default the last reference picture: on the
+        device P program with the frame's per-CTB QP map (a B frame takes
+        none), or on the host programs, which take the map for B frames
+        too, as the JAX package's do."""
         ref = self._last_recon if ref is None else ref
+        if not self._inter_device:
+            with PROFILER.scope("analyze_inter_host"):
+                return self._analyze_inter_host(fr, qp, ref, is_b)
+        qp_map = None if is_b else self._inter_qp_map(fr[0], qp)
         with PROFILER.scope("analyze_inter_device"):
             return self._inter().encode_frame(fr, ref, self.avg_dist, qp=qp,
-                                              is_b=is_b)
+                                              is_b=is_b, qp_map=qp_map)
+
+    def _analyze_inter_host(self, fr, qp, ref, is_b):
+        """The host P programs, as the JAX package's _analyze_inter runs
+        them where its device does not: the CU32 / CU64 tree at CTU 32 /
+        64, else CU16, each with merge-RD and rectangular PUs (off with a
+        map, and in FAST / UFAST) and deblocking inside. SAO follows in
+        _emit. Returns (FrameDesc, y, u, v) with int32 recon planes."""
+        kw = dict(is_b=is_b, search=self._inter_search_range(),
+                  avg_dist=self.avg_dist, merge_rd=True, rect_pu=True,
+                  qp_map=self._inter_qp_map(fr[0], qp))
+        if self.ps.ctu_size in (32, 64):
+            return encode_inter_frame_tree(self.ps, fr, ref, qp, **kw)
+        return encode_inter_frame(self.ps, fr, ref, qp, cu_size=16, **kw)
 
     def _trailing_p(self) -> Iterator:
         """The held frame as a P frame of the anchor before it (closed GOP
@@ -694,11 +764,12 @@ class TorchPipeline:
         """IBP: anchors at even display positions, one B between them,
         emitted in decode order I0 P2 B1 A4 B3 ... Each anchor predicts
         from the anchor before it, two display frames back (from the third
-        anchor on, at CTU 32, bi-predicted from the two previous anchors:
-        t-2 in list 0, t-4 in list 1 by l1_swap); each B, a non-reference
-        picture, from both anchors around it (at CTU 32; elsewhere from the
-        earlier one alone) with the B QP offset. No scene-cut check, as in
-        the JAX package."""
+        anchor on, at CTU 32 on the device, bi-predicted from the two
+        previous anchors: t-2 in list 0, t-4 in list 1 by l1_swap); each B,
+        a non-reference picture, from both anchors around it (at CTU 32,
+        on the device's B program or the host bi B tree; elsewhere from
+        the earlier one alone) with the B QP offset. No scene-cut check,
+        as in the JAX package."""
         t = self._disp
         self._disp += 1
         ip = self.cfg.intra_period
@@ -719,7 +790,8 @@ class TorchPipeline:
             poc = t - self._idr_base
             held = self._held is not None
             prev2 = self._anchor_m2
-            if held and prev2 is not None and self._bi_ok():
+            if (held and prev2 is not None and self._inter_device
+                    and self._bi_ok()):
                 # a generalized-B anchor: list 0 the previous anchor (t-2),
                 # list 1 the one before (t-4); per-CU uni / bi keeps the
                 # quality at the two distances
@@ -747,10 +819,19 @@ class TorchPipeline:
         self._held = None
         bpoc = bt - self._idr_base
         qb = min(51, self.rc.pic_qp(False) + self.cfg.b_qp_offset)
-        if self._bi_ok():
+        if self._bi_ok() and self._inter_device:
             with PROFILER.scope("analyze_b_bi"):
                 desc, ry, ru, rv = self._inter().encode_frame_b(
                     fb, prev_anchor, self._last_recon, self.avg_dist, qp=qb)
+        elif self._bi_ok():
+            # the host bi B tree (no per-CTB QP map)
+            with PROFILER.scope("analyze_b_bi"):
+                desc, ry, ru, rv = encode_b_frame_tree(
+                    self.ps, fb,
+                    tuple(np.asarray(p, np.int32) for p in prev_anchor),
+                    tuple(np.asarray(p, np.int32) for p in self._last_recon),
+                    qb, search=self._inter_search_range(),
+                    avg_dist=self.avg_dist)
         else:
             desc, ry, ru, rv = self._inter_frame(fb, qb, ref=prev_anchor,
                                                  is_b=True)

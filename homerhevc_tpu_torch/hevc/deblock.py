@@ -1,8 +1,8 @@
 """Host (numpy) HEVC deblocking filter (spec 8.7.2), the port's copy of
-what its host intra programs need from homerhevc_tpu/golden/deblock.py:
-the luma and chroma filters over whole planes, the boundary strengths of
-an all-intra frame, and the decoder-view QP map that deblocking reads
-under cu_qp_delta. The host twin of the device ops/deblock.py, which reads
+what its host intra and inter programs need from
+homerhevc_tpu/golden/deblock.py: the luma and chroma filters over whole
+planes, the boundary strengths of an inter and of an all-intra frame, and
+the decoder-view QP map that deblocking reads under cu_qp_delta. The host twin of the device ops/deblock.py, which reads
 the spec tables from here.
 
 Operates on reconstruction planes given block-structure maps (TU size per
@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from homerhevc_tpu_torch.hevc.syntax import MODE_INTRA
 from homerhevc_tpu_torch.hevc.tables import chroma_qp
 
 # beta' and tc' tables (spec Table 8-11)
@@ -228,6 +229,94 @@ def deblock_plane_chroma(recon: np.ndarray, qp_map8: np.ndarray,
     run(True)
     run(False)
     return out
+
+
+def inter_bs_maps(desc, tu_size8: np.ndarray):
+    """Boundary-strength maps for a P frame (spec 8.7.2.4): BS=2 when either
+    side is intra; else BS=1 when either side's TU has nonzero luma levels or
+    the MVs differ by >= 1 pel (4 quarter-pels); else 0. Edges only on the
+    8-grid at TU/PU boundaries (uniform grid: TU == PU)."""
+    h8, w8 = tu_size8.shape
+    bs_v = np.zeros((h8, w8), np.int32)
+    bs_h = np.zeros((h8, w8), np.int32)
+    # per-unit: does the TU covering this unit have nonzero luma levels?
+    nz = np.zeros((h8, w8), bool)
+    for uy in range(h8):
+        for ux in range(w8):
+            ts = int(tu_size8[uy, ux])
+            x0 = (ux * 8 // ts) * ts
+            y0 = (uy * 8 // ts) * ts
+            nz[uy, ux] = bool(desc.coef_y[y0:y0 + ts, x0:x0 + ts].any())
+    intra = desc.pred_mode == MODE_INTRA
+    mv = desc.mv
+    mv1 = desc.mv_l1   # B frames; lists pair by reference picture
+    dirs = desc.inter_dir
+    if dirs is None:
+        dirs = np.full(intra.shape, 3 if mv1 is not None else 1, np.uint8)
+
+    def bs_between(uy, ux, vy, vx, tu_edge=True):
+        if intra[uy, ux] or intra[vy, vx]:
+            return 2
+        # the nonzero-coefficient rule applies only to TRANSFORM block
+        # edges (spec 8.7.2.4); a PU-only edge inside a TU uses just the
+        # motion rules below
+        if tu_edge and (nz[uy, ux] or nz[vy, vx]):
+            return 1
+        # spec 8.7.2.4 motion mismatch: different number of MVs -> 1;
+        # else compare per list (the two lists reference distinct
+        # pictures here, so vectors pair by list)
+        da, db = int(dirs[uy, ux]), int(dirs[vy, vx])
+        if bin(da).count("1") != bin(db).count("1") or da != db:
+            return 1
+        # multi-reference: different reference pictures -> BS 1
+        if desc.ref_idx is not None and (
+                int(desc.ref_idx[uy, ux]) != int(desc.ref_idx[vy, vx])):
+            return 1
+        if (da & 1) and (
+                abs(int(mv[uy, ux, 0]) - int(mv[vy, vx, 0])) >= 4
+                or abs(int(mv[uy, ux, 1]) - int(mv[vy, vx, 1])) >= 4):
+            return 1
+        if (da & 2) and mv1 is not None and (
+                abs(int(mv1[uy, ux, 0]) - int(mv1[vy, vx, 0])) >= 4
+                or abs(int(mv1[uy, ux, 1]) - int(mv1[vy, vx, 1])) >= 4):
+            return 1
+        return 0
+
+    # PU boundaries (spec filterEdgeFlag includes prediction-block edges):
+    # rectangular CUs carry an internal PU edge on the 8-grid that is not
+    # a TU edge; mark those units so the loop below evaluates them
+    pu_edge_v = np.zeros((h8, w8), bool)
+    pu_edge_h = np.zeros((h8, w8), bool)
+    if desc.inter_part is not None and desc.inter_part.any():
+        for uy in range(h8):
+            for ux in range(w8):
+                part = int(desc.inter_part[uy, ux])
+                if not part:
+                    continue
+                cu_n = 16 >> 0  # rect PUs are CU16-level in this encoder
+                x0 = (ux * 8 // cu_n) * cu_n
+                y0 = (uy * 8 // cu_n) * cu_n
+                if part == 1 and uy * 8 == y0 + cu_n // 2:
+                    pu_edge_h[uy, ux] = True
+                if part == 2 and ux * 8 == x0 + cu_n // 2:
+                    pu_edge_v[uy, ux] = True
+
+    for uy in range(h8):
+        for ux in range(w8):
+            ts = int(tu_size8[uy, ux])
+            if ux > 0:
+                if (ux * 8) % ts == 0:
+                    bs_v[uy, ux] = bs_between(uy, ux, uy, ux - 1)
+                elif pu_edge_v[uy, ux]:
+                    bs_v[uy, ux] = bs_between(uy, ux, uy, ux - 1,
+                                              tu_edge=False)
+            if uy > 0:
+                if (uy * 8) % ts == 0:
+                    bs_h[uy, ux] = bs_between(uy, ux, uy - 1, ux)
+                elif pu_edge_h[uy, ux]:
+                    bs_h[uy, ux] = bs_between(uy, ux, uy - 1, ux,
+                                              tu_edge=False)
+    return bs_v, bs_h
 
 
 def intra_bs_maps(tu_size8: np.ndarray):

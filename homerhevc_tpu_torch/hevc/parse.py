@@ -807,8 +807,9 @@ def read_slice_header(ps: ParamSets, br, nal_type: int) -> dict:
     (one slice per picture, the PPS and SPS of ParamSets.from_config) up to
     its byte alignment. Returns the slice type, POC (the LSBs; 0 for an
     IDR), QP, SAO flags, each reference list's first POC distance
-    (ref_dists, as the pipeline derives them) and the WPP entry point
-    offsets."""
+    (ref_dists, as the pipeline derives them), the POC distance of each
+    active list-0 reference of a multi-reference slice (ref_dists_l0,
+    None with one) and the WPP entry point offsets."""
     irap = 16 <= nal_type <= 23
     idr = nal_type in (19, 20)
     _expect(br.read(1) == 1, "first_slice_segment_in_pic_flag")
@@ -835,9 +836,10 @@ def read_slice_header(ps: ParamSets, br, nal_type: int) -> dict:
     if ps.sao_enabled:
         sao = (bool(br.read(1)), bool(br.read(1)))
     l1_swap = False
+    num_ref_l0 = 1
     if st != SLICE_I:
         if br.read(1):                      # num_ref_idx_active_override
-            br.read_ue()
+            num_ref_l0 = br.read_ue() + 1
             if st == SLICE_B:
                 br.read_ue()
         npt = len(before) + len(after)
@@ -868,8 +870,11 @@ def read_slice_header(ps: ParamSets, br, nal_type: int) -> dict:
         l1 = before[1]
     else:
         l1 = l0
+    rdl0 = (tuple(poc - b for b in before[:num_ref_l0])
+            if num_ref_l0 > 1 else None)
     return dict(slice_type=st, poc=poc, qp=qp, sao=sao,
-                ref_dists=(poc - l0, poc - l1), entry_points=offsets)
+                ref_dists=(poc - l0, poc - l1), ref_dists_l0=rdl0,
+                entry_points=offsets)
 
 
 def parse_slice_nal(ps: ParamSets, nal: bytes, parser=None):
@@ -904,7 +909,8 @@ def parse_slice_nal(ps: ParamSets, nal: bytes, parser=None):
                                     CabacDecoder(BitReader(subs[0]),
                                                  init_contexts(name, qp)),
                                     st, qp, sao_enabled=any(hdr["sao"]),
-                                    ref_dists=hdr["ref_dists"])
+                                    ref_dists=hdr["ref_dists"],
+                                    ref_dists_l0=hdr["ref_dists_l0"])
     saved = None
     for cy in range(ps.ctus_y):
         if ps.wpp and cy > 0:
@@ -962,7 +968,8 @@ def desc_mismatches(got, want, sao_got=None, sao_want=None) -> list[str]:
     parameters) differ from the serialized `want`, compared where the
     syntax carries them: CU depths, prediction modes and every
     coefficient level; intra luma and chroma modes in intra CUs; skip
-    flags; each list's MV where that list predicts; the QP in 8x8 units
+    flags; each list's MV where that list predicts, and list 0's
+    reference index in a multi-reference slice; the QP in 8x8 units
     with a coded level (before a quantization group's first coded CU the
     decoder keeps the predicted QP); SAO types and merges, offsets of the
     CTBs that apply them (magnitudes for edge offsets, whose signs the
@@ -991,6 +998,9 @@ def desc_mismatches(got, want, sao_got=None, sao_want=None) -> list[str]:
              else np.ones_like(want.pred_mode))
         l0 = inter8 & ((d & 1) != 0)
         check("mv", np.array_equal(got.mv[l0], want.mv[l0]))
+        if want.ref_idx is not None:
+            check("ref_idx", got.ref_idx is not None and np.array_equal(
+                got.ref_idx[l0], want.ref_idx[l0]))
         if got.inter_dir is not None and want.inter_dir is not None:
             check("inter_dir", np.array_equal(got.inter_dir[inter8],
                                               want.inter_dir[inter8]))

@@ -9,7 +9,11 @@ port's recon. Each JAX program is built once, in a module fixture, and
 injected into the JAX Encoders; the P programs' coarse sweep runs in
 Pallas interpret mode (tests/torch_golden.interpret_sweep). The CU64 map
 program also codes the P frames of an IPPP stream whose I frames take the
-host tree (intra_rdo with maps)."""
+host tree (intra_rdo with maps). The module's I and P programs also code
+an IBP stream with maps (its anchors with their maps, its B frames with
+none) and the device frames of a three-reference stream (whose frames
+with three references take the host program); a CTU-32 IBP stream with
+maps builds its own P and B programs."""
 
 import functools
 
@@ -32,8 +36,10 @@ from homerhevc_tpu_torch.engine.rate_control import aq_qp_map
 from homerhevc_tpu_torch.hevc.headers import ParamSets
 from homerhevc_tpu_torch.state import reference_from_numpy
 from tests.conftest import decode_annexb, make_yuv
-from tests.torch_golden import P_FIELDS, assert_p_frames_equal, \
-    interpret_sweep
+from tests.test_multiref import _flicker_frames
+from tests.torch_golden import (P_FIELDS, assert_p_frames_equal,
+                                interpret_sweep, spec_amvp, spec_amvp_mref,
+                                spec_mref_rps)
 
 torch.set_num_threads(1)    # one intra-op thread per test worker
 
@@ -161,14 +167,18 @@ def _digests(efs):
 
 
 def _assert_same_stream_and_decodes(want, got, path, n):
+    """The same frame types, Annex-B bytes and recon planes, and an FFmpeg
+    decode of the n frames equal to the port's recon (display order)."""
     stream = b"".join(e.annex_b() for e in got)
     assert [e.frame_type for e in got] == [e.frame_type for e in want]
     assert stream == b"".join(e.annex_b() for e in want)
+    for a, b in zip(want, got):
+        assert all(np.array_equal(a.recon[c], b.recon[c]) for c in "yuv")
     path.write_bytes(stream)
     dec = decode_annexb(path)
     assert len(dec) == n
-    for d, e in zip(dec, got):
-        assert np.array_equal(d, e.recon["y"])
+    for e in got:
+        assert np.array_equal(dec[e.poc], e.recon["y"]), e.poc
 
 
 def test_intra_aq_batched_stream_matches_jax_and_decodes(tmp_path,
@@ -402,3 +412,104 @@ def test_tree_i_frames_with_maps_stream_matches_jax_and_decodes(tmp_path):
     assert enc._pipeline._intra_enc is None
     assert maps[0] is None and all(m is not None for m in maps[1:])
     _assert_same_stream_and_decodes(want, got, tmp_path / "tree_aq.265", n)
+
+
+# ---- IBP with maps and multi-reference P on the device programs -------------
+
+def _stream_with_descs(kw, frames, search=None):
+    """The port's stream of kw (the P program at the search range given,
+    to match a JAX program built for IPPP), and the FrameDescs it emits."""
+    enc = Encoder(EncoderConfig(**kw), device="cpu")
+    pipe = enc._pipeline
+    if search is not None:
+        pipe._inter_enc = TorchInterEncoder(pipe.ps, pipe.cfg, search=search,
+                                            device="cpu")
+    descs = []
+    emit = pipe._emit
+
+    def spy(desc, *a, **k):
+        descs.append(desc)
+        return emit(desc, *a, **k)
+    pipe._emit = spy
+    return _encode(enc, frames), descs
+
+
+def test_ibp_with_maps_stream_matches_jax_and_decodes(tmp_path, jax_ippp_aq):
+    """IBP at CU16 with AQ and row-RC under CBR, deblocking off, on the
+    device programs (Queue 1 item 4): the anchors coded inline with their
+    per-CTB maps, the B frames (uni-L0 at CU16) with none, as the JAX
+    package codes them; the row shares noted after every P and B frame.
+    Both Encoders on the module's I and P programs (the P program at
+    IPPP's search range, 16, in both): identical bytes and recon, and an
+    FFmpeg decode equal to the port's recon in display order."""
+    kw = dict(_IPPP_AQ_KW, gop_size=2, num_b=1)
+    frames = chip_smoke.aq_frames(5, _W_P, _H_P)
+    jenc = JaxEncoder(JaxConfig(**kw))
+    jenc._pipeline._tpu_intra, jenc._pipeline._tpu_inter = jax_ippp_aq
+    want = _encode(jenc, frames)
+    got, descs = _stream_with_descs(kw, frames, search=16)
+    assert [e.frame_type for e in got] == list("IPBPB")
+    assert [d.qp_map is None for d in descs] == [False, False, True, False,
+                                                True]
+    _assert_same_stream_and_decodes(want, got, tmp_path / "ibp_aq.265", 5)
+
+
+def test_ibp_ctu32_with_maps_stream_matches_jax_and_decodes(tmp_path,
+                                                           monkeypatch):
+    """IBP at CTU 32 with intra_rdo and AQ, deblocking off: the I frame on
+    the host tree (no map), P2 on the CU32 P program with its map, the bi
+    anchor A4 and the bi B frames on the B program without one (search
+    24 in both pipelines; the JAX Encoder builds its own P and B programs
+    here at 64x64). Against the JAX package with the spec's two-list AMVP
+    list (spec_amvp: these B frames code a CU at the left picture edge
+    that reaches its fault, ROADMAP Queue 3): identical bytes and recon,
+    an FFmpeg decode equal to the port's recon in display order; some
+    units bi."""
+    kw = dict(chip_smoke.AQ_CFG, width=64, height=64, cu_size=32,
+              intra_rdo=True, gop_size=2, num_b=1)
+    frames = chip_smoke.aq_frames(5, 64, 64)
+    spec_amvp(monkeypatch)
+    want = _encode(JaxEncoder(JaxConfig(**kw)), frames)
+    got, descs = _stream_with_descs(kw, frames)
+    assert [e.frame_type for e in got] == list("IPBBB")
+    assert [d.qp_map is None for d in descs] == [True, False, True, True,
+                                                True]
+    assert any((d.inter_dir == 3).any() for d in descs[2:])
+    _assert_same_stream_and_decodes(want, got, tmp_path / "ibp32_aq.265", 5)
+
+
+def test_multireference_stream_on_the_device_chain_matches_jax(
+        tmp_path, jax_ippp_plain, monkeypatch):
+    """Three references at CU16 (num_ref_frames 3, deblocking on, fixed QP)
+    with an IDR at frame 5: I0 P1 P2 on the device P chain (depth 2), P3
+    and P4 three-reference frames on the host once the reference queue
+    holds two pictures (the chain drained first and dropped), I5, P6 and
+    P7 on the device chain again; some CUs of P3 and P4 at ref_idx 1 or
+    2. The JAX package's P2 lists P1 alone in its reference picture set,
+    so a decoder drops I0, which P3 then predicts from: its stream does
+    not decode past P2 (ROADMAP Queue 3). The port lists the whole
+    reference queue there. Against the JAX Encoder on the module's I and
+    P programs with that RPS (spec_mref_rps) and the spec's
+    multi-reference AMVP list (spec_amvp_mref): identical bytes and
+    recon, and an FFmpeg decode equal to the port's recon."""
+    spec_amvp_mref(monkeypatch)
+    kw = dict(_IPPP_RC_KW, num_ref_frames=3, intra_period=5)
+    frames = _flicker_frames(np.random.RandomState(3), _W_P, _H_P, 8)
+
+    def jax_stream():
+        jenc = JaxEncoder(JaxConfig(**kw))
+        jenc._pipeline._tpu_intra, jenc._pipeline._tpu_inter = \
+            jax_ippp_plain
+        return _encode(jenc, frames)
+    faulty = jax_stream()
+    path = tmp_path / "faulty.265"
+    path.write_bytes(b"".join(e.annex_b() for e in faulty))
+    assert len(decode_annexb(path)) < len(frames)
+    spec_mref_rps(monkeypatch)
+    want = jax_stream()
+    got, descs = _stream_with_descs(kw, frames)
+    assert [e.frame_type for e in got] == list("IPPPPIPP")
+    mref = [d.ref_idx is not None for d in descs]
+    assert mref == [False, False, False, True, True, False, False, False]
+    assert all((descs[i].ref_idx >= 1).any() for i in (3, 4))
+    _assert_same_stream_and_decodes(want, got, tmp_path / "mref.265", 8)

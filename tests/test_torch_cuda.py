@@ -4,8 +4,10 @@ version, the wrapper's checks on CUDA tensors, and the encoders (flat
 CU16 I and P, the intra CU tree, device SAO, the CU-tree P program with
 the FAR level and intra-in-P, the bi-capable B program, the
 generalized-B chain, the intra and P programs with per-CTB QP maps, the
-CLI, an IPPP stream whose I frame takes the host programs) and the ops
-they add on the card against the same code on the CPU,
+CLI, an IPPP stream whose I frame takes the host programs, a
+three-reference stream whose later frames take the host P programs, an
+IBP stream with per-CTB QP maps) and the ops they add on the card against
+the same code on the CPU,
 and the port's parser on a stream coded on the card. They
 skip here with a reason. This file imports no jax, so on the card's machine it runs
 without the JAX package's conftest:
@@ -452,4 +454,54 @@ def test_host_i_frame_ippp_stream_on_card_matches_cpu(card):
         out[dev] = (b"".join(e.annex_b() for e in efs),
                     [e.recon[c].tobytes() for e in efs for c in "yuv"])
     assert [e.frame_type for e in efs] == ["I", "P", "P", "P"]
+    assert out["cuda"] == out["cpu"]
+
+
+def _card_and_cpu_streams(cfg, frames):
+    """cfg's stream of frames on the CPU and on the card: {device: (bytes,
+    recon planes)}, the frame types (decode order) and the sweep's CUDA
+    launches."""
+    from homerhevc_tpu_torch.api import Encoder
+    out = {}
+    for dev in ("cpu", "cuda"):
+        enc = Encoder(cfg, device=dev)
+        before = LAUNCHES["coarse_sweep_sads"]
+        efs = [e for f in frames for e in enc.encode(*f)]
+        efs += list(enc.flush())
+        launches = LAUNCHES["coarse_sweep_sads"] - before
+        out[dev] = (b"".join(e.annex_b() for e in efs),
+                    [e.recon[c].tobytes() for e in efs for c in "yuv"])
+    return out, "".join(e.frame_type for e in efs), launches
+
+
+def test_multireference_stream_on_card_matches_cpu(card):
+    """Three references at CU16 (128x64, 6 frames, deblocking): I0, P1 and
+    P2 on the card's depth-2 chain, P3-P5 three-reference frames on the
+    host programs from the card's recon; the stream and recon equal the
+    CPU path's byte for byte, the sweep once per device P frame."""
+    from homerhevc_tpu_torch.tools.p_frame_ops import bench_clip
+    cfg = EncoderConfig(width=128, height=64, qp=32, cu_size=16, gop_size=1,
+                        deblocking=True, sao=True, sign_hiding=True,
+                        num_ref_frames=3, intra_period=0)
+    out, types, launches = _card_and_cpu_streams(cfg,
+                                                 bench_clip(128, 64, 6, 29))
+    assert types == "IPPPPP"
+    assert launches == 2
+    assert out["cuda"] == out["cpu"]
+
+
+def test_ibp_with_maps_stream_on_card_matches_cpu(card):
+    """IBP at CU16 with AQ and row-RC under CBR, deblocking off (128x64,
+    decode order I0 P2 B1 A4 B3): the anchors on the card with their maps,
+    the B frames without; the stream and recon equal the CPU path's byte
+    for byte, the sweep once per anchor and B frame."""
+    from homerhevc_tpu_torch.tools.p_frame_ops import bench_clip
+    cfg = EncoderConfig(width=128, height=64, qp=30, cu_size=16, gop_size=2,
+                        num_b=1, deblocking=False, sao=False,
+                        sign_hiding=True, aq_strength=2.0, rc_ctu=True,
+                        bitrate_mode=1, bitrate_kbps=300)
+    out, types, launches = _card_and_cpu_streams(cfg,
+                                                 bench_clip(128, 64, 5, 31))
+    assert types == "IPBPB"
+    assert launches == 4
     assert out["cuda"] == out["cpu"]

@@ -16,8 +16,14 @@ RD_FULL all-intra at CTU 32, all-intra CU16 AQ with deblocking) are the
 JAX Encoder's digests, computed here (its CTU-32 P program built once,
 the sweep in Pallas interpret mode), and the port's CPU path hashes to
 them; that P program also serves the JAX CLI's -rd_mode 1 -cu_size 32
--intra_rdo 1 stream, which the port's CLI equals. On the card,
-chip_smoke.py holds the port's CUDA path to these constants."""
+-intra_rdo 1 stream, which the port's CLI equals. The host P cells
+(HOST_P_DIGESTS: 128x64 streams whose P and B frames the JAX package codes
+on its host programs: intra_rdo at CU16, AQ with deblocking, AQ with
+intra-in-P at CTU 32, IBP CTU 32 with AQ and deblocking, three
+references) are the JAX Encoder's digests with the spec's AMVP lists
+(tests/torch_golden.jax_host_p_stream_digests, numpy only), computed here,
+and the port's CPU path hashes to them. On the card, chip_smoke.py holds
+the port's CUDA path to these constants."""
 
 import types
 
@@ -32,7 +38,7 @@ from homerhevc_tpu.golden.inter_frame import encode_inter_frame
 from homerhevc_tpu.golden.intra_frame import encode_intra_frame
 from homerhevc_tpu.hevc import bitstream, cabac, ctx_tables, headers, syntax
 from tests.torch_golden import (cli_matches_the_jax_cli, golden_tree,
-                                interpret_sweep)
+                                interpret_sweep, jax_host_p_stream_digests)
 
 torch.set_num_threads(1)    # one intra-op thread per test worker
 
@@ -180,3 +186,26 @@ def test_cli_rd_full_tree_matches_the_jax_cli(jax_host_streams, tmp_path,
     cli_matches_the_jax_cli(["-rd_mode", "1", "-cu_size", "32",
                              "-intra_rdo", "1"], tmp_path, monkeypatch,
                             capsys, jax_inter=jax_host_streams[1])
+
+
+def test_chip_smoke_host_p_digests_are_the_jax_encoders():
+    assert jax_host_p_stream_digests() == chip_smoke.HOST_P_DIGESTS
+
+
+@pytest.mark.parametrize("cell", list(chip_smoke.HOST_P_CELLS))
+def test_port_reproduces_the_host_p_stream_digests(cell):
+    """The host P cells on the port's CPU path: no device encoder is
+    built."""
+    from homerhevc_tpu_torch.api import Encoder
+    from homerhevc_tpu_torch.config import EncoderConfig as TorchConfig
+    kw, n = chip_smoke.HOST_P_CELLS[cell]
+    kw = {**chip_smoke.HOST_CFG, **kw}
+    enc = Encoder(TorchConfig(**kw), device="cpu")
+    efs = chip_smoke.encode_all(
+        enc, chip_smoke.aq_frames(n, kw["width"], kw["height"]))
+    assert enc._pipeline._intra_enc is None
+    assert enc._pipeline._inter_enc is None
+    assert chip_smoke.digests(
+        b"".join(e.annex_b() for e in efs),
+        [e.recon[c] for e in efs for c in "yuv"]) == \
+        chip_smoke.HOST_P_DIGESTS[cell]

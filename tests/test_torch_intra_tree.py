@@ -3,8 +3,8 @@ package: the decision pass equals TpuIntraTreeEncoder.decide; the encode
 with deblocking equals the golden tree encode + golden deblock (the
 references tests/test_intra_tree.py holds the JAX tree to) at CTU 32 and
 64; the whole slice (tree + deblock + SAO through api.Encoder, all-intra,
-IPPP, IBP and generalized-B) gives the JAX Encoder's Annex-B bytes and
-decodes to the port's recon. The streams share one JAX tree program and
+IPPP, IBP, generalized-B and three references) gives the JAX Encoder's
+Annex-B bytes and decodes to the port's recon. The streams share one JAX tree program and
 one JAX P / B program (the B program is also held to the port's _impl_b
 here, field by field)."""
 
@@ -26,9 +26,11 @@ from homerhevc_tpu_torch.hevc.headers import ParamSets
 from homerhevc_tpu_torch.state import reference_from_numpy
 from tests.conftest import decode_annexb
 from tests.test_intra_tree import _mixed_frame
+from tests.test_multiref import _flicker_frames
 from tests.torch_golden import (B_FIELDS, P_FIELDS, IntSums,
                                 assert_p_frames_equal, golden_tree,
-                                interpret_sweep, spec_amvp, torch_p_frame)
+                                interpret_sweep, spec_amvp, spec_amvp_mref,
+                                torch_p_frame)
 
 torch.set_num_threads(1)    # one intra-op thread per test worker
 
@@ -427,3 +429,28 @@ def test_host_i_frame_streams_match_jax_and_decode(changes, types, tmp_path,
     assert "".join(e.frame_type for e in got) == types
     if kw.get("rd_mode"):
         assert descs[0].part_nxn.any() or descs[0].tr_depth.any()
+
+
+def test_multireference_ctu32_stream_matches_jax_and_decodes(
+        tmp_path, jax_tree_encoder, jax_inter_encoder, monkeypatch):
+    """Three references at CTU 32 (num_ref_frames 3, IPPP, deblocking and
+    SAO) with an IDR at frame 4: I0 on the tree program, P1 and the
+    generalized-B B2 (t-1 and t-2) on the device chain, P3 a
+    three-reference CU16 frame on the host program once the reference
+    queue holds two pictures (the chain drained and dropped first, the
+    host SAO after it), then I4 and P5 on the device again. Against the
+    JAX Encoder on the module's programs (search 16 in both) with the
+    spec's AMVP lists (spec_amvp, spec_amvp_mref): identical bytes and an
+    FFmpeg decode equal to the port's recon; P3 codes CUs at ref_idx 1
+    or 2."""
+    interpret_sweep(monkeypatch)
+    spec_amvp(monkeypatch)
+    spec_amvp_mref(monkeypatch)
+    kw = dict(_INTER_KW, num_ref_frames=3, intra_period=4)
+    frames = _flicker_frames(np.random.RandomState(2), 96, 64, 6)
+    got, descs = _b_stream(kw, frames, tmp_path, jax_tree_encoder,
+                           jax_inter_encoder)
+    assert "".join(e.frame_type for e in got) == "IPBPIP"
+    assert [d.ref_idx is not None for d in descs] == [False, False, False,
+                                                     True, False, False]
+    assert (descs[3].ref_idx >= 1).any()

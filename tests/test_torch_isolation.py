@@ -3,10 +3,10 @@ parser and the tools included) and no line of chip_smoke.py imports jax
 or the JAX package, nor does a run of `python -m
 homerhevc_tpu_torch.cli`; a 64x64 I + P encode, an
 intra CU-tree encode, a CTU-32 IPPP encode, an IBP encode and a
-generalized-B encode, all with SAO, run with both blocked; every
-configuration outside the port's slices raises NotImplementedError when
-the Encoder is built (there is no golden fallback), and the
-configurations the last slices brought encode on the CPU and decode
+generalized-B encode, all with SAO, run with both blocked; more than one
+device, the one configuration outside the port, raises
+NotImplementedError when the Encoder is built (there is no fallback), and
+the configurations the last slices brought encode on the CPU and decode
 (FFmpeg) to the port's recon; the Encoder defaults to the card."""
 
 import ast
@@ -23,6 +23,7 @@ from homerhevc_tpu_torch.api import Encoder
 from homerhevc_tpu_torch.config import (BitrateMode, EncoderConfig,
                                         PerformanceMode, RDMode)
 from tests.conftest import decode_annexb
+from tests.torch_golden import cli_matches_the_jax_cli
 
 torch.set_num_threads(1)    # one intra-op thread per test worker
 
@@ -44,6 +45,7 @@ def _sources():
 
 
 _ENTRY_POINTS = ("cli.py", "hevc/parse.py", "hevc/cabac_dec.py",
+                 "hevc/interp.py", "hevc/rd_bits.py", "hevc/inter_frame.py",
                  "tools/measure_rd.py", "tools/prof_device.py",
                  "tools/bench.py", "hevc/transform.py", "hevc/quantize.py",
                  "hevc/intra_frame.py", "hevc/intra_tree.py",
@@ -159,18 +161,17 @@ def test_cli_module_runs_without_jax(tmp_path):
         assert np.array_equal(d, e[:64])
 
 
-def test_cli_refuses_an_unported_config_before_any_output(tmp_path):
-    """intra_rdo at CU16 in IPPP, whose P frames the JAX package codes on
-    its numpy golden path (the host P programs, not ported): the CLI exits
-    non-zero with the NotImplementedError naming Queue 1 item 7 on stderr,
-    and writes no stream and no recon."""
-    r, _ = _cli(tmp_path, "-intra_rdo", "1", "-cu_size", "16", "-gop_size",
-                "1")
-    assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr
-    assert "Queue 1 item 7" in r.stderr
-    assert not (tmp_path / "out.265").exists()
-    assert not (tmp_path / "rec.yuv").exists()
+def test_cli_refuses_an_unported_config_before_any_output(tmp_path,
+                                                         monkeypatch,
+                                                         capsys):
+    """The configuration this test once saw the CLI refuse, intra_rdo at
+    CU16 in IPPP (its P frames on the host P programs since they were
+    ported), now encodes: the port's CLI gives the JAX CLI's config and
+    bytes, and an FFmpeg decode equal to its -o-raw. The CLI has no
+    -num_devices, so it refuses no configuration."""
+    cli_matches_the_jax_cli(["-intra_rdo", "1", "-cu_size", "16",
+                             "-gop_size", "1"], tmp_path, monkeypatch,
+                            capsys)
 
 
 _BASE = dict(width=64, height=64, cu_size=16, gop_size=1, qp=32, sao=False)
@@ -186,39 +187,77 @@ _TREE = dict(gop_size=0, cu_size=32, intra_rdo=True)
 
 
 def _case(changes, item, index, named=None):
-    """A refusal case under the id it had when the list also held the B,
-    generalized-B and two-reference cases (now in
-    test_lifted_config_encodes) and the host intra cases (now in
-    test_host_intra_config_encodes_and_decodes), so that each keeps its
-    name; named: the
-    item in that id where the case once expected another (the per-CTB QP
-    map cases, refused by item 4 before it was ported and now by item
-    7's host paths)."""
+    """A case of test_unported_config_raises under the id it had when that
+    list also held the cases that now encode (test_lifted_config_encodes,
+    test_host_intra_config_encodes_and_decodes and
+    test_host_inter_config_encodes_and_decodes), so that each keeps its
+    name; named: the item in that id where the case once expected
+    another."""
     return pytest.param(changes, item,
                         id=f"changes{index}-{named or item}")
 
 
 @pytest.mark.parametrize("changes,item", [
-    # per-CTB QP maps with deblocking on (the default) in IPPP: the JAX
-    # package codes their P frames on its golden path
-    _case(dict(intra_rdo=True, cu_size=32, aq_strength=1.0), "item 7", 4,
-          "item 4"),
-    _case(dict(aq_strength=1.0), "item 7", 5, "item 4"),
-    _case(dict(rc_ctu=True), "item 7", 6, "item 4"),
-    _case(dict(num_devices=2), "item 6", 9),
-    # more than two references: the JAX package's golden path only
-    _case(dict(num_ref_frames=3), "item 7", 14),
-    # maps with B frames: IBP's anchors would take maps, its B frames none
-    _case(dict(aq_strength=1.0, deblocking=False, num_b=1), "item 4", 17),
-    _case(dict(rc_ctu=True, deblocking=False, gop_size=2), "item 4", 18),
-    # P frames of the host programs: intra_rdo at CU16, maps with
-    # intra-in-P at CU32 / CU64
-    _case(dict(intra_rdo=True), "item 7", 19),
-    _case(dict(cu_size=64, aq_strength=1.0, deblocking=False,
-               intra_in_p=True), "item 7", 20)])
+    _case(dict(num_devices=2), "item 6", 9)])
 def test_unported_config_raises(changes, item):
+    """More than one device (Queue 1 item 6) is the one configuration the
+    port refuses; every other configuration of the JAX package encodes."""
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         Encoder(EncoderConfig(**{**_BASE, **changes}), device="cpu")
+
+
+@pytest.mark.parametrize("changes,types", [
+    # per-CTB QP maps with deblocking on (the default) in IPPP
+    _case(dict(intra_rdo=True, cu_size=32, aq_strength=1.0), "IPP", 4,
+          "item 4"),
+    _case(dict(aq_strength=1.0), "IPP", 5, "item 4"),
+    _case(dict(rc_ctu=True), "IPP", 6, "item 4"),
+    # three references: the fourth frame predicts from the three before
+    # it (the first three ride the device chain)
+    _case(dict(num_ref_frames=3), "IPPP", 14, "item 7"),
+    # maps with B frames, deblocking off: the device programs
+    _case(dict(aq_strength=1.0, deblocking=False, num_b=1), "IPB", 17,
+          "item 4"),
+    _case(dict(rc_ctu=True, deblocking=False, gop_size=2), "IPB", 18,
+          "item 4"),
+    # intra_rdo at CU16, maps with intra-in-P at CU64
+    _case(dict(intra_rdo=True), "IPP", 19, "item 7"),
+    _case(dict(cu_size=64, aq_strength=1.0, deblocking=False,
+               intra_in_p=True), "IPP", 20, "item 7")])
+def test_host_inter_config_encodes_and_decodes(changes, types, tmp_path):
+    """Configurations refused until the host P programs and IBP with maps
+    were ported (under the ids they had in test_unported_config_raises)
+    encode on the CPU, 3 frames (4 with three references) with deblocking
+    on unless they set it off, and decode to the port's recon (in display
+    order); the fourth frame of the three-reference case codes per-CU
+    reference indices."""
+    yy, xx = np.mgrid[0:64, 0:64]
+    y = (100 + 60 * np.sin(xx / 5.0) + yy).astype(np.uint8)
+    y[:16] = 90                                  # a flat band: AQ deltas
+    c = np.full((32, 32), 128, np.uint8)
+    enc = Encoder(EncoderConfig(**{**_BASE, "deblocking": True,
+                                   "reinit_gop_on_scene_change": False,
+                                   **changes}), device="cpu")
+    descs = []
+    emit = enc._pipeline._emit
+
+    def spy(desc, *a, **k):
+        descs.append(desc)
+        return emit(desc, *a, **k)
+    enc._pipeline._emit = spy
+    n = len(types)
+    efs = [e for t in range(n) for e in enc.encode(np.roll(y, 3 * t, 1),
+                                                   c, c)]
+    efs += list(enc.flush())
+    assert "".join(e.frame_type for e in efs) == types
+    if "num_ref_frames" in changes:
+        assert [d.ref_idx is not None for d in descs] == [False] * 3 + [True]
+    path = tmp_path / "host_inter.265"
+    path.write_bytes(b"".join(e.annex_b() for e in efs))
+    dec = decode_annexb(path)
+    assert len(dec) == n
+    for e in efs:
+        assert np.array_equal(dec[e.poc], e.recon["y"]), e.poc
 
 
 @pytest.mark.parametrize("changes,types", [

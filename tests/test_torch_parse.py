@@ -3,9 +3,11 @@ of the JAX package's with a stream-level reader added) on the port's own
 streams, encoded on the CPU once per module: every slice of an IPPP CU16
 stream with SAO (the I frame's decided on the host, the P frames' on the
 device), of an IPPP CU16 stream with WPP, SAO and per-CTB AQ maps
-(cu_qp_delta) and of a 96x64 IBP stream at CTU 32 (bi anchors and B
-frames) parses back into the FrameDesc and SAO parameters that were
-serialized. The JAX package's parser agrees on the same slices except
+(cu_qp_delta), of a 96x64 IBP stream at CTU 32 (bi anchors and B
+frames), of a three-reference stream with AQ and deblocking (per-CU
+ref_idx_l0 under a num_ref_idx_active override) and of a 64x64 IBP
+stream at CU16 with intra_rdo (rectangular PUs in its B slices) parses
+back into the FrameDesc and SAO parameters that were serialized. The JAX package's parser agrees on the same slices except
 where a B slice codes an AMVP PU at the left picture edge with mvp flag
 1: there the JAX package's two-list AMVP list differs from the spec's
 (ROADMAP Queue 3), so it derives other motion vectors."""
@@ -22,6 +24,7 @@ from homerhevc_tpu_torch.hevc.parse import (SerializedSlices,
                                             parse_slice_nal, split_annexb)
 from homerhevc_tpu_torch.tools.p_frame_ops import bench_clip
 from tests.test_intra_tree import _mixed_frame
+from tests.test_multiref import _flicker_frames
 
 torch.set_num_threads(1)    # one intra-op thread per test worker
 
@@ -53,6 +56,14 @@ _STREAMS = {
                         lambda: _banded(bench_clip(128, 64, 3, 6))),
     "ibp-ctu32": (dict(width=96, height=64, cu_size=32, gop_size=2,
                        intra_rdo=True, sao=True), lambda: _pan_frames(7, 43)),
+    "ippp-3refs-aq-deblock": (dict(width=128, height=64, cu_size=16,
+                                   gop_size=1, num_ref_frames=3,
+                                   aq_strength=2.0, sao=True),
+                              lambda: _flicker_frames(
+                                  np.random.RandomState(4), 128, 64, 4)),
+    "ibp-intra_rdo-cu16": (dict(width=64, height=64, cu_size=16,
+                                gop_size=2, intra_rdo=True),
+                           lambda: bench_clip(64, 64, 5, 8)),
 }
 
 
@@ -87,8 +98,15 @@ def test_port_parser_recovers_the_serialized_slices(streams, name):
         assert desc_mismatches(p.d, desc, p.sao, sao) == [], hdr
         if desc.qp_map is not None:
             qp_off += int((desc.qp_map != hdr["qp"]).sum())
-    assert len(types) == (3 if name == "ibp-ctu32" else 2)
-    assert (qp_off > 0) == (name == "ippp-wpp-sao-aq")
+    assert len(types) == (3 if name.startswith("ibp") else 2)
+    assert (qp_off > 0) == ("aq" in name)
+    if name == "ippp-3refs-aq-deblock":
+        assert [d.ref_idx is not None for d, _, _ in slices] == \
+            [False, False, True, True]
+        assert any((d.ref_idx >= 1).any() for d, _, _ in slices[2:])
+    if name == "ibp-intra_rdo-cu16":
+        assert any(d.inter_part is not None and d.inter_part.any()
+                   for d, _, _ in slices[2::2])
 
 
 @pytest.mark.parametrize("name", list(_STREAMS))

@@ -90,6 +90,48 @@ def spec_amvp(monkeypatch):
                         lambda *a, **k: None)
 
 
+def spec_amvp_mref(monkeypatch):
+    """Give the JAX package the spec's multi-reference AMVP candidate list
+    (the port's amvp_candidates_mref) in its golden P path and its Python
+    serializer, which import it at call time, and turn its native
+    serializer off. The JAX package's list keeps the same-reference above
+    candidate where no left neighbour exists and derives no scaled one
+    for the left's place, a list a decoder does not derive (ROADMAP Queue
+    3); everything else of the reference stays as it is."""
+    import homerhevc_tpu.hevc.inter as jax_inter
+    import homerhevc_tpu.native as jax_native
+    from homerhevc_tpu_torch.hevc.inter import amvp_candidates_mref
+    monkeypatch.setattr(jax_inter, "amvp_candidates_mref",
+                        amvp_candidates_mref)
+    monkeypatch.setattr(jax_native, "encode_slice_native",
+                        lambda *a, **k: None)
+
+
+def spec_mref_rps(monkeypatch):
+    """Give the JAX package's IPPP P slices with num_ref_frames > 2 the
+    reference picture set the port writes: every picture of the
+    reference queue, not the previous picture alone. Its depth-2 device
+    chain emits the second P frame after an IDR once the queue holds two
+    pictures, and an RPS of the previous picture alone drops the I frame
+    from the decoder's buffer while the next, multi-reference frame
+    predicts from it (ROADMAP Queue 3). Only the slice header's RPS
+    changes; the coding does not."""
+    from homerhevc_tpu.engine.pipeline import EncoderPipeline
+    from homerhevc_tpu.hevc.headers import SLICE_I, SLICE_P
+    emit = EncoderPipeline._emit
+
+    def with_queue_refs(self, desc, ry, ru, rv, src=None,
+                        slice_type=SLICE_I, refs_before=None, **kw):
+        if (slice_type == SLICE_P and refs_before is None
+                and self.cfg.gop_size == 1 and self.cfg.num_ref_frames > 2):
+            n = len(getattr(self, "_ref_queue", ()))
+            refs_before = tuple(self.gop_poc - 1 - i
+                                for i in range(max(1, n)))
+        return emit(self, desc, ry, ru, rv, src=src, slice_type=slice_type,
+                    refs_before=refs_before, **kw)
+    monkeypatch.setattr(EncoderPipeline, "_emit", with_queue_refs)
+
+
 def jax_b_stream_digests():
     """The B cells of chip_smoke.py (B_CELLS) through the JAX package's
     Encoder on the CPU, its coarse sweep in interpret mode
@@ -115,6 +157,26 @@ def jax_b_stream_digests():
     with pytest.MonkeyPatch.context() as mp:
         interpret_sweep(mp)
         return chip_smoke.b_stream_digests(encode)
+
+
+def jax_host_p_stream_digests():
+    """The host P cells of chip_smoke.py (HOST_P_CELLS) through the JAX
+    package's Encoder on the CPU, with the spec's AMVP lists and
+    multi-reference RPS (spec_amvp, spec_amvp_mref, spec_mref_rps; where
+    a cell does not reach the JAX package's faults they change nothing):
+    their digests. Numpy only, no JAX program (the cells' I, P and B
+    frames are all host frames)."""
+    import chip_smoke
+    from homerhevc_tpu.api import Encoder
+    from homerhevc_tpu.config import EncoderConfig as JaxConfig
+
+    def encode(kw, frames):
+        return chip_smoke.encode_all(Encoder(JaxConfig(**kw)), frames)
+    with pytest.MonkeyPatch.context() as mp:
+        spec_amvp(mp)
+        spec_amvp_mref(mp)
+        spec_mref_rps(mp)
+        return chip_smoke.host_p_stream_digests(encode)
 
 
 class IntSums(TorchDispatchMode):
