@@ -37,13 +37,14 @@ passed):
      720p IPPP CU16 (1 I + 15 P; its first two frames re-encoded on the
      CPU, plain path, give identical Annex-B bytes) and a 720p all-intra
      CU16 batch (slice 1); 1080p all-intra CU32 and CU64 with intra_rdo,
-     deblocking and SAO, 4 frames in flight (frame 0 of CU32 re-encoded
-     alone on the CPU gives identical bytes); 720p IPPP CU16 with SAO
+     deblocking and SAO, 4 frames in flight (frame 0 of CU32 equal to
+     path D's I0 coded alone on the CPU); 720p IPPP CU16 with SAO
      (1 I + 7 P, the sweep launched once per P frame, the first two
      frames equal on the CPU) (slice 2); path C, 1080p IPPP (1 I + 7 P)
      with intra_rdo, deblocking and SAO at CTU 64 and at CTU 32 FAST (the
      sweep launched once per P frame, some CTBs coded as CU32 / CU64, the
-     I and first P frame of CTU 64 equal on the CPU) (slice 3); path D,
+     I and first P frame of CTU 64 equal on the CPU; CTU 32's I frame
+     split by stage) (slice 3); path D,
      1080p IBP at CTU 32 (I0 P2 B1 A4 B3 A6 B5 A8 B7, every frame after P2
      bi-capable, the sweep's 8-bit entry point once per P and twice per
      bi frame, its wide one once per bi frame, some 8x8 units coded bi,
@@ -67,30 +68,40 @@ passed):
      coded lines) IPPP CTU 64 without intra_rdo, deblocking + SAO (1 I +
      7 P, I + first P equal on the CPU, CU64s in the P frames), G1 RD_FULL
      416x240 IPPP CTU 32 (1 I + 3 P, NxN PUs and TU splits, I + P equal on
-     the CPU), G2 720p all-intra CU16 AQ with deblocking (2 frames, every
+     the CPU), G2 720p all-intra CU16 AQ with deblocking (1 frame, its
      slice parsed back, the decoder's QPs those deblocking read), G3 720p
      IPPP CU32 AQ + row-RC CBR 1250 kbps, deblocking off (1 I + 7 P, I +
-     2 P equal on the CPU), the sweep once per P frame; path H, the host
-     P and B programs (slice 8), every slice parsed back: H0 720p IPPP
-     CU16 AQ + row-RC CBR 1250 kbps with deblocking and SAO (1 I + 3 P,
-     all host; the parsed QPs equal those deblocking read), H1 720p IPPP
-     CU16 with three references (1 I + 4 P: the first P frames on the
-     device chain, the sweep once per device P frame, then host
-     three-reference frames with CUs at ref_idx >= 1; I + 3 P equal on the
+     2 P equal on the CPU), the sweep once per P frame (each CPU re-encode
+     takes the host I frame of the card's run: the same numpy); path H,
+     the host P and B programs (slice 8), every slice parsed back: H0 720p
+     IPPP CU16 AQ + row-RC CBR 1250 kbps with deblocking and SAO (1 I + 2
+     P, all host; the parsed QPs equal those deblocking read), H1 720p
+     IPPP CU16 with three references (1 I + 3 P: the first P frames on
+     the device chain, the sweep once per device P frame, then a host
+     three-reference frame with CUs at ref_idx >= 1; I + 2 P equal on the
      CPU), H2 720p IBP CU16 with AQ, deblocking off (I0 P2 B1 A4 B3 on the
      device, the anchors with maps; the sweep once per anchor and B
      frame; I0 P2 B1 equal on the CPU), H3 416x240 IBP CTU 32 AQ with
-     deblocking and SAO (all host, the host bi B tree, some units bi),
-     H4 416x240 IPPP CU16 intra_rdo (all host, rectangular PUs); neither
-     jax nor homerhevc_tpu may be imported;
+     deblocking and SAO (I0 P2 B1, all host, the host bi B tree, some
+     units bi), H4 416x240 IPPP CU16 intra_rdo (1 I + 2 P, all host,
+     rectangular PUs); path I, the multi-device scale-out (slice 9, the
+     mesh's slots on the one card where the machine has fewer cards than
+     slots): I0 encode_frames_sharded, 720p all-intra CU16 (bench.py's
+     config), 8 frames over 4 slots, each stream equal to the
+     single-device Encoder's on the card and to 1 slot's, fps against 1
+     slot; I1 gop_parallel_encode, 720p IPPP CU16 with deblocking, 4
+     segments of I + 3 P over 4 slots, each equal to the sequential
+     Encoder on the card and segment 0 to 1 slot's, the sweep exactly 12
+     times, fps against 1 slot and ms per step; I2 the dry run over 8
+     slots; neither jax nor homerhevc_tpu may be imported;
   5. where the time goes: one P frame of slice 1, a P frame with SAO and
      a CTU-64 P frame of path C under torch.profiler, and the aten ops of
      a path-C P frame; one bi frame of path D counted by aten op and under
-     torch.profiler; one 1080p tree frame split by stage (decide,
-     wavefront, deblock, SAO, pack) and timed, the aten ops of its
-     decision pass and first 16 wavefront steps counted, then
-     torch.profiler over the decision pass and the first 2 wavefront
-     steps. A "[time]" line gives each phase's seconds.
+     torch.profiler; the aten ops of a 1080p tree frame's decision pass
+     and first 4 wavefront steps counted, then torch.profiler over the
+     decision pass and the first 2 wavefront steps (the tree frame's split
+     by stage, decide, wavefront, deblock, SAO, pack, comes from path C's
+     CTU-32 I frame). A "[time]" line gives each phase's seconds.
 Then the kernel table (JSON, one entry per entry point; launches are
 those of the main paths of phase 4), the card's name and power limit,
 and the result line.
@@ -98,6 +109,7 @@ and the result line.
 Exits non-zero without a result when no CUDA device is available.
 """
 
+import dataclasses
 import hashlib
 import json
 import subprocess
@@ -121,7 +133,7 @@ N_PATH_D_CPU = 3              # I0 P2 B1 re-encoded on the CPU
 N_PATH_E = 16                 # path E0 / E1: 720p IPPP CBR, 1 I + 15 P
 N_PATH_E_CPU = 3              # E0's and E1's I + 2 P re-encoded on the CPU
 PROFILE_STEPS = 2             # wavefront steps under torch.profiler
-COUNT_STEPS = 16              # wavefront steps whose aten ops are counted
+COUNT_STEPS = 4               # wavefront steps whose aten ops are counted
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64       # Hopper SM: 64 INT32 lanes per clock
 OPS_PER_PACKED_LANE = 8       # vabsdiff4 .add: 4 pairs of |a - b| + add
@@ -886,12 +898,12 @@ def sao_share(params):
 def phase_tree_path(frames):
     """Path A on the card: 1080p all-intra CU32 and CU64 with intra_rdo,
     deblocking and SAO, one batch of F_TREE frames each (after a 256x128
-    warm-up of the same configuration); frame 0 of CU32 re-encoded alone
-    on the CPU must give the same Annex-B bytes."""
+    warm-up of the same configuration). Returns the slice NAL of CU32's
+    frame 0, which path D's CPU re-encode of the same frame alone (its
+    I0: the same tree program, frame and QP) must give."""
     from homerhevc_tpu_torch.api import Encoder
     from homerhevc_tpu_torch.device import LAUNCHES, reset_launches
     small = bench_frames(F_TREE, w=256, h=128)
-    first = None
     for cu in (32, 64):
         encode_all(Encoder(tree_config(256, 128, cu)), small)   # warm-up
         torch.cuda.synchronize()
@@ -921,14 +933,8 @@ def phase_tree_path(frames):
             f"{tree.nslot} CTB32 slots; kernel launches "
             f"{dict(LAUNCHES)} (no hand kernel on this path)")
         if cu == 32:
-            first = efs[0].annex_b()
-    t = time.perf_counter()
-    cpu = encode_all(Encoder(tree_config(W_TREE, H_TREE, 32, 1),
-                             device="cpu"), frames[:1])
-    check(cpu[0].annex_b() == first, "CUDA tree stream != CPU stream")
-    log(f"[tree] 1080p CU32 frame 0 re-encoded alone on the CPU (plain "
-        f"path, single-frame path, {time.perf_counter() - t:.1f} s): "
-        f"Annex-B bytes identical to the card's batched encode")
+            first = efs[0].nals[-1]
+    return first
 
 
 def phase_sao_ippp(frames):
@@ -980,9 +986,10 @@ def phase_path_c(frames):
     intra_rdo, deblocking and SAO at CTU 64, then at CTU 32 in the FAST
     mode, each after a 256x128 warm-up of the same configuration; the sweep
     runs once per P frame, some CTBs code as CU32 / CU64; the I and first P
-    frame of CTU 64 re-encoded on the CPU give the same Annex-B bytes; one
-    CTU-64 P frame under torch.profiler and counted by aten op.
-    Returns the sweep's launches."""
+    frame of CTU 64 re-encoded on the CPU give the same Annex-B bytes;
+    CTU 32's I frame split by stage (stage_timer); one CTU-64 P frame
+    under torch.profiler and counted by aten op. Returns the sweep's
+    launches."""
     from homerhevc_tpu_torch.api import Encoder
     from homerhevc_tpu_torch.device import LAUNCHES, reset_launches
     from homerhevc_tpu_torch.tools.p_frame_ops import (count_p_frame,
@@ -998,6 +1005,10 @@ def phase_path_c(frames):
         enc = Encoder(p_frame_config(W_TREE, H_TREE, cu, perf))
         pipe = enc._pipeline
         descs, emitted = spy_emit(pipe)
+        if cu == 32:
+            # the I frame's stage split (the tree encoder's five stages,
+            # the card synchronised around each)
+            stages, unstage = stage_timer(pipe._intra())
         PROFILER.reset()
         reset_launches()
         t = time.perf_counter()
@@ -1023,6 +1034,13 @@ def phase_path_c(frames):
             f"inside a CU64 {100 * cu64:.1f}%; coarse sweep launches "
             f"{launches['coarse_sweep_sads']}")
         log(f"[path C] {label} host scopes:\n" + PROFILER.report())
+        if cu == 32:
+            unstage()
+            i_s = emitted[0] - t
+            log(f"[stages] 1080p CU32 tree I frame (path C, CTU 32 FAST): "
+                f"{i_s:.3f} s to its emission; " + ", ".join(
+                    f"{k} {stages[k]:.3f} s ({100 * stages[k] / i_s:.1f}%)"
+                    for k in TREE_STAGES.values()))
         if cu == 64:
             card64 = b"".join(e.annex_b() for e in efs[:2])
             pe = pipe._inter()
@@ -1069,14 +1087,16 @@ def first_frames(enc, frames, n):
     raise AssertionError(f"{len(out)} frames out of {len(frames)} pushed")
 
 
-def phase_path_d(frames):
+def phase_path_d(frames, tree_slice):
     """Path D on the card: 1080p IBP at CTU 32, I0 P2 B1 A4 B3 A6 B5 A8 B7
     (every frame after P2 runs the bi-capable program), after a 256x128
     warm-up of the same configuration; the sweep runs once per P frame
     and three times per bi frame (twice on the source, once wide on the
     bi target); I0 P2 B1 re-encoded on the CPU give the same Annex-B
-    bytes; one bi frame under torch.profiler and counted by aten op.
-    Returns the launches of the sweep's two entry points."""
+    bytes, and I0's slice on the CPU is tree_slice, path A's frame 0 from
+    the card's batch of F_TREE (the same tree program on the same frame);
+    one bi frame under torch.profiler and counted by aten op. Returns the
+    launches of the sweep's two entry points."""
     from homerhevc_tpu_torch.api import Encoder
     from homerhevc_tpu_torch.device import LAUNCHES, reset_launches
     from homerhevc_tpu_torch.tools.p_frame_ops import count_b_frame
@@ -1135,8 +1155,12 @@ def phase_path_d(frames):
     check(b"".join(e.annex_b() for e in cpu)
           == b"".join(e.annex_b() for e in efs[:N_PATH_D_CPU]),
           "CUDA path D stream != CPU stream")
+    check(cpu[0].nals[-1] == tree_slice,
+          "path A's batched CU32 frame 0 on the card != I0 on the CPU")
     log(f"[path D] I0 P2 B1 re-encoded on the CPU (plain path, "
-        f"{time.perf_counter() - t:.1f} s): Annex-B bytes identical")
+        f"{time.perf_counter() - t:.1f} s): Annex-B bytes identical; I0's "
+        f"slice equal to path A's frame 0 from the card's batch of "
+        f"{F_TREE}")
     return (launches["coarse_sweep_sads"],
             launches["coarse_sweep_sads_wide"])
 
@@ -1167,8 +1191,8 @@ def phase_path_e(frames, frames_1080):
     with AQ (strength 2) and row-RC, deblocking off, every P frame inline
     with its map; each after a 3-frame warm-up of its configuration, its
     I and first two P frames re-encoded on the CPU (identical bytes), and
-    one P frame of each under torch.profiler beside a P frame without a
-    map and without deblocking. E2 is bench.py's all-intra CU16 with AQ,
+    one P frame of each under torch.profiler. E2 is bench.py's all-intra
+    CU16 with AQ,
     4 frames in flight. E3 one 1088-line CTU-64 P frame with a map
     through the P program on the card and on the CPU (every field equal).
     Returns the sweep's launches."""
@@ -1229,15 +1253,12 @@ def phase_path_e(frames, frames_1080):
         log(f"[path E] {label}: I + 2 P re-encoded on the CPU (plain path, "
             f"{time.perf_counter() - t:.1f} s): Annex-B bytes identical")
     # one P frame with and without a map under torch.profiler: E0's
-    # (deblocking on, no map), E1's (a map, deblocking off) and the like
-    # of E1's without a map
+    # (deblocking on, no map) and E1's (a map, deblocking off)
     src, ref = frames[2], reference_from_numpy(frames[1], DEV)
     qp_map = aq_qp_map(src[0], 16, 32, 2.0)
     for label, cfg, m in (("E0 P frame", config3(), None),
                           ("E1 P frame with a map",
-                           config3(deblocking=False), qp_map),
-                          ("P frame without deblocking or map",
-                           config3(deblocking=False), None)):
+                           config3(deblocking=False), qp_map)):
         pe = TorchInterEncoder(ParamSets.from_config(cfg), cfg, device=DEV)
         pe.encode_frame(src, ref, qp_map=m)                 # warm-up
         ops, compute = count_p_frame(pe, src, ref, m)
@@ -1346,7 +1367,7 @@ def phase_path_f(frames):
     same bytes and imports neither jax nor homerhevc_tpu. Then the twins:
     tools/measure_rd on F0's file (8 frames, QPs 32 and 37; at QP 32 the
     kbps of the CLI's first 8 frames), tools/prof_device (me, impl and
-    fetch at 1088 lines, the CU32 tree P program), tools/bench (64 frames,
+    fetch at 1088 lines, the CU32 tree P program), tools/bench (32 frames,
     32 in flight). Returns the sweep's launches of F0 and F1."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="chip_smoke_f_") as tmp:
@@ -1522,10 +1543,10 @@ def _path_f(frames, tmp):
     for row in rows:
         log(f"[path F] prof_device: {json.dumps(row)}")
     log(f"[path F] prof_device ({dt:.1f} s, {n_k} sweeps)")
-    rows, dt, _ = twin(bench.main, ["--frames", "64", "--in-flight", "32"])
+    rows, dt, _ = twin(bench.main, ["--frames", "32", "--in-flight", "32"])
     check(list(rows[0]) == ["metric", "value", "unit", "vs_baseline"]
           and rows[0]["value"] > 0, rows)
-    log(f"[path F] bench: {json.dumps(rows[0])} ({dt:.1f} s, 64 frames "
+    log(f"[path F] bench: {json.dumps(rows[0])} ({dt:.1f} s, 32 frames "
         f"after two warm batches of 32)")
     log(f"[path F] took {time.perf_counter() - t_f:.1f} s")
     return sweeps
@@ -1533,7 +1554,7 @@ def _path_f(frames, tmp):
 
 N_PATH_G = 8                  # G0, G3: 1 I + 7 P
 N_PATH_G1 = 4                 # G1: 1 I + 3 P
-N_PATH_G2 = 2                 # G2: two all-intra frames
+N_PATH_G2 = 1                 # G2: one all-intra frame
 N_PATH_G_CPU = (2, 2, 3)      # G0's, G1's I + P, G3's I + 2 P on the CPU
 W_G1, H_G1 = 416, 240         # G1: the HEVC class-D size
 H_G1_CODED = 256              # G1's coded lines at CTU 32
@@ -1549,20 +1570,37 @@ def host_ippp_config(w, h, cu, **kw):
         reinit_gop_on_scene_change=False), **kw})
 
 
-def run_path_g(label, cfg, frames, n_cpu):
+def record_host_i_frames(pipe):
+    """Record what pipe's host intra programs return (the list grows as
+    its I frames are coded)."""
+    out = []
+    analyze = pipe._analyze_intra_host
+
+    def record(*a, **k):
+        out.append(analyze(*a, **k))
+        return out[-1]
+    pipe._analyze_intra_host = record
+    return out
+
+
+def run_path_g(label, cfg, frames, n_cpu, profile=True):
     """Encode frames with cfg on the card (1 I + P frames; the I frame on
     the host programs, no device intra encoder built), the sweep launched
     once per P frame; the first n_cpu frames re-encoded on the CPU give
-    the same bytes; one P frame under torch.profiler. Logs fps, the I
-    frame's host seconds (analyze_intra_host), ms per P frame, launches
-    and device busy per P frame. Returns (EncodedFrames, FrameDescs,
-    pipeline, sweep launches)."""
+    the same bytes, the CPU pipeline taking the I frame the host programs
+    coded in the card's run (numpy on this host either way: the CPU run
+    checks the device P frames coded from it); with profile, one P frame
+    under torch.profiler. Logs fps, the I frame's host seconds
+    (analyze_intra_host), ms per P frame, launches and device busy per P
+    frame. Returns (EncodedFrames, FrameDescs, pipeline, sweep
+    launches)."""
     from homerhevc_tpu_torch.api import Encoder
     from homerhevc_tpu_torch.device import LAUNCHES, reset_launches
     from homerhevc_tpu_torch.utils.profiler import PROFILER
     enc = Encoder(cfg)
     pipe = enc._pipeline
     descs, emitted = spy_emit(pipe)
+    host_i = record_host_i_frames(pipe)
     PROFILER.reset()
     reset_launches()
     t = time.perf_counter()
@@ -1577,31 +1615,38 @@ def run_path_g(label, cfg, frames, n_cpu):
     check(PROFILER.counts["analyze_intra_host"] == 1, PROFILER.counts)
     floor = 18.0 if cfg.bitrate_mode else 25.0
     mean_psnr = check_frames(efs, frames, ["I"] + ["P"] * n_p, floor)
-    pe = pipe._inter()
-    src = pipe._pad_frame(*frames[-1])
-    ref = pe.last_dev
-    qp_map = pipe._inter_qp_map(src[0], cfg.qp)
-    n_k, busy, wall = profile_window(
-        f"path G {label}, one P frame (dispatch)",
-        lambda: pe.dispatch(src, ref, qp_map=qp_map))
+    prof = "not profiled"
+    if profile:
+        pe = pipe._inter()
+        src = pipe._pad_frame(*frames[-1])
+        ref = pe.last_dev
+        qp_map = pipe._inter_qp_map(src[0], cfg.qp)
+        n_k, busy, _ = profile_window(
+            f"path G {label}, one P frame (dispatch)",
+            lambda: pe.dispatch(src, ref, qp_map=qp_map))
+        prof = f"{n_k} kernels, device busy {busy:.2f} ms"
     bits = [e.bits for e in efs]
     log(f"[path G] {label}: {len(frames)} frames (1 I + {n_p} P) in "
         f"{t_end - t:.3f} s = {len(frames) / (t_end - t):.4f} fps; I frame "
         f"{emitted[0] - t:.3f} s ({host_s:.3f} s analyze_intra_host, "
         f"{PROFILER.totals['sao']:.3f} s host SAO); P frames "
         f"{(t_end - emitted[0]) / n_p * 1e3:.1f} ms each; one P frame "
-        f"{n_k} kernels, device busy {busy:.2f} ms; bits/frame "
+        f"{prof}; bits/frame "
         f"{np.mean(bits):.0f} (I {bits[0]}); luma PSNR {mean_psnr:.2f} dB; "
         f"coarse sweep launches {launches['coarse_sweep_sads']}")
     log(f"[path G] {label} host scopes:\n" + PROFILER.report())
     t = time.perf_counter()
-    cpu = first_frames(Encoder(cfg, device="cpu"), frames, n_cpu)
+    check(len(host_i) == 1, f"{len(host_i)} host I frames")
+    cpu_enc = Encoder(cfg, device="cpu")
+    cpu_enc._pipeline._analyze_intra_host = lambda *a, **k: host_i.pop()
+    cpu = first_frames(cpu_enc, frames, n_cpu)
+    check(not host_i, "the CPU run coded no I frame")
     check(b"".join(e.annex_b() for e in cpu)
           == b"".join(e.annex_b() for e in efs[:n_cpu]),
           f"CUDA path G {label} stream != CPU stream")
     log(f"[path G] {label}: the first {n_cpu} frames re-encoded on the "
-        f"CPU (plain path, {time.perf_counter() - t:.1f} s): Annex-B bytes "
-        f"identical")
+        f"CPU (plain path from the card run's host I frame, "
+        f"{time.perf_counter() - t:.1f} s): Annex-B bytes identical")
     return efs, descs, pipe, launches["coarse_sweep_sads"]
 
 
@@ -1628,7 +1673,7 @@ def phase_path_g(frames, frames_1080, frames_g1):
     coded lines) IPPP at CTU 32 with intra_rdo (the host RD_FULL tree:
     NxN 4x4 PUs and TU splits present; frames_g1, g1_frames' clip),
     1 I + 3 P. G2: 720p all-intra CU16 with AQ (strength 2) and
-    deblocking, 2 frames in flight (the host program, deblocking at the
+    deblocking, one frame (the host program, deblocking at the
     decoder-view QP map), on the AQ cells' frames (a flat band over the
     top quarter) with a flat left column too, whose quantization groups
     below the band code nothing and so keep the QP predicted from the row
@@ -1654,7 +1699,7 @@ def phase_path_g(frames, frames_1080, frames_g1):
     efs, descs, pipe, n = run_path_g(
         "G0 1080p IPPP CTU 64 fixed-CU32 host I",
         host_ippp_config(W_TREE, H_TREE, 64), frames_1080[:N_PATH_G],
-        N_PATH_G_CPU[0])
+        N_PATH_G_CPU[0], profile=False)   # path C profiles its P program
     sweeps += n
     check(pipe.cfg.height == -(-H_TREE // 64) * 64, pipe.cfg.height)
     cu32, cu64 = tree_share(descs[1:], pipe.ps)
@@ -1719,7 +1764,8 @@ def phase_path_g(frames, frames_1080, frames_g1):
         f"{np.mean([e.bits for e in efs2]):.0f}; luma PSNR {mean2:.2f} dB; "
         f"CTBs away from their slice QP {100 * share2:.1f}%; 8x8 units "
         f"deblocked at the predictor's QP, not their map's: {uncoded}; "
-        f"both slices parsed back ({time.perf_counter() - t:.1f} s): "
+        f"{len(spy.slices)} slice(s) parsed back "
+        f"({time.perf_counter() - t:.1f} s): "
         f"modes, levels and the decoder's QPs equal")
     # G3
     cfg3 = host_ippp_config(W, H, 32, aq_strength=2.0, rc_ctu=True,
@@ -1742,9 +1788,9 @@ def phase_path_g(frames, frames_1080, frames_g1):
     return sweeps
 
 
-N_PATH_H = (4, 5, 5, 5, 4)     # H0 1 I + 3 P, H1 1 I + 4 P, H2 and H3 I0 P2
-                               # B1 A4 B3, H4 1 I + 3 P
-N_PATH_H_CPU = (4, 3)          # H1's I + 3 P, H2's I0 P2 B1 on the CPU
+N_PATH_H = (3, 4, 5, 3, 3)     # H0 1 I + 2 P, H1 1 I + 3 P, H2 I0 P2 B1 A4
+                               # B3, H3 I0 P2 B1, H4 1 I + 2 P
+N_PATH_H_CPU = (3, 3)          # H1's I + 2 P, H2's I0 P2 B1 on the CPU
 
 
 def h_config(w, h, **kw):
@@ -1853,18 +1899,20 @@ def phase_path_h(frames):
     """Path H on the card: the host P and B programs (slice 8), each
     through api.Encoder, every slice parsed back. H0: 720p IPPP CU16 with
     AQ (strength 2) and row-RC under CBR 1250 kbps, deblocking and SAO (1
-    I + 3 P, all on the host; h0_frames' flat areas: some units deblocked
+    I + 2 P, all on the host; h0_frames' flat areas: some units deblocked
     at the predicted QP, the parsed QPs equal those deblocking read). H1:
-    720p IPPP CU16 with three references, QP 32 (1 I + 4 P on the
+    720p IPPP CU16 with three references, QP 32 (1 I + 3 P on the
     flickering h1_frames: I0, P1, P2 on the device chain, the sweep once
-    per device P frame; P3, P4 three-reference frames on the host with
-    some CUs at ref_idx 1 or 2; I + 3 P equal on the CPU). H2: 720p IBP
+    per device P frame; P3 a three-reference frame on the host with some
+    CUs at ref_idx 1 or 2; I + 2 P, the device frames, equal on the
+    CPU). H2: 720p IBP
     CU16 with AQ, deblocking off (I0 P2 B1 A4 B3 on the device: the
     anchors with their maps, the B frames without; the sweep once per
     anchor and B frame; I0 P2 B1 equal on the CPU). H3: 416x240 IBP CTU
-    32 with intra_rdo, AQ, deblocking and SAO (all host: the host tree I
-    frame, host anchors, the host bi B tree; some 8x8 units bi). H4:
-    416x240 IPPP CU16 with intra_rdo, deblocking and SAO (1 I + 3 P, all
+    32 with intra_rdo, AQ, deblocking and SAO (I0 P2 B1, all host: the
+    host tree I frame, a host anchor, the host bi B tree; some 8x8 units
+    bi). H4: 416x240 IPPP CU16 with intra_rdo, deblocking and SAO (1 I +
+    2 P, all
     host; rectangular PUs in the P frames). Returns the sweep's
     launches."""
     from homerhevc_tpu_torch.config import BitrateMode
@@ -1893,12 +1941,12 @@ def phase_path_h(frames):
                             N_PATH_H_CPU[0])
     sweeps += 2
     check([d.ref_idx is not None for d in descs]
-          == [False, False, False, True, True],
-          "H1: not P3 and P4 alone three-reference frames")
+          == [False, False, False, True],
+          "H1: not P3 alone a three-reference frame")
     far = [float(np.mean(d.ref_idx[d.pred_mode == 0] >= 1))
            for d in descs[3:]]
     check(max(far) > 0, "H1: no CU at ref_idx 1 or 2")
-    log(f"[path H] H1: the inter 8x8 units of P3 and P4 at ref_idx >= 1: "
+    log(f"[path H] H1: the inter 8x8 units of P3 at ref_idx >= 1: "
         f"{', '.join(f'{100 * x:.1f}%' for x in far)}")
     # H2
     efs, descs = run_path_h("H2 720p IBP CU16 AQ, deblocking off, device",
@@ -1915,10 +1963,10 @@ def phase_path_h(frames):
         "H3 416x240 IBP CTU 32 intra_rdo AQ + deblocking + SAO, host",
         h_config(W_G1, H_G1, cu_size=32, gop_size=2, num_b=1,
                  intra_rdo=True, aq_strength=2.0, sao=True),
-        aq_frames(N_PATH_H[3], W_G1, H_G1), "IPBPB", 0)
+        aq_frames(N_PATH_H[3], W_G1, H_G1), "IPB", 0)
     bi = [float(np.mean(d.inter_dir == 3)) for d in descs[2::2]]
     check(max(bi) > 0, "H3: no 8x8 unit coded bi")
-    log(f"[path H] H3: 8x8 units coded bi in B1, B3: "
+    log(f"[path H] H3: 8x8 units coded bi in B1: "
         f"{', '.join(f'{100 * x:.1f}%' for x in bi)}")
     # H4
     n = N_PATH_H[4]
@@ -1935,17 +1983,195 @@ def phase_path_h(frames):
     return sweeps
 
 
+N_PATH_I = 4                   # path I: slots of I0 and I1
+N_PATH_I0 = 8                  # I0: all-intra frames, 2 per slot
+N_PATH_I1 = 4                  # I1: frames per GOP segment, 1 I + 3 P
+N_PATH_I2 = 8                  # I2: the dry run's slots
+
+
+def path_i_mesh(n):
+    """n slots: the first n cards where the machine has them, else all n
+    on cuda:0 (each slot still its own host thread and CUDA stream)."""
+    from homerhevc_tpu_torch.parallel.mesh import make_mesh
+    if torch.cuda.device_count() >= n:
+        return make_mesh(n)
+    return make_mesh(n, ["cuda:0"] * n)
+
+
+def record_emissions():
+    """Patch TorchPipeline._emit to record the clock at each emission;
+    returns (the list of times, a function that restores _emit)."""
+    from homerhevc_tpu_torch.engine.pipeline import TorchPipeline
+    times = []
+    emit = TorchPipeline._emit
+
+    def timed(self, *a, **k):
+        out = emit(self, *a, **k)
+        times.append(time.perf_counter())
+        return out
+    TorchPipeline._emit = timed
+
+    def restore():
+        TorchPipeline._emit = emit
+    return times, restore
+
+
+def phase_path_i(frames):
+    """Path I on the card: the multi-device scale-out (slice 9,
+    homerhevc_tpu_torch.parallel.mesh), its slots all on cuda:0 where the
+    machine has fewer cards than slots. I0: encode_frames_sharded, 720p
+    all-intra CU16 (bench.py's config: sign hiding, SAO and deblocking
+    off), N_PATH_I0 frames over N_PATH_I slots (2 per slot), then over 1
+    slot (each run building its slots' encoders): no launch of the
+    sweep, every stream equal to the single-device Encoder's on the card
+    (one Encoder, all N_PATH_I0 frames in flight) and to 1 slot's; fps of
+    each run.
+    I1: gop_parallel_encode, 720p IPPP CU16 with deblocking, N_PATH_I
+    segments of 1 I + 3 P over N_PATH_I slots, then segment 0 over 1
+    slot: the sweep launched exactly once per P frame (12) under the slot
+    threads, every segment equal to the sequential Encoder on the card,
+    segment 0 to 1 slot's; fps of each and ms per step (from the
+    emission of frame t-1 of every segment to that of frame t). I2:
+    encode_frames_sharded_dryrun over N_PATH_I2 slots. Returns I1's
+    sweep launches."""
+    from homerhevc_tpu_torch.api import Encoder
+    from homerhevc_tpu_torch.config import EncoderConfig
+    from homerhevc_tpu_torch.device import LAUNCHES, reset_launches
+    from homerhevc_tpu_torch.parallel.mesh import (
+        encode_frames_sharded, encode_frames_sharded_dryrun,
+        gop_parallel_encode)
+    t_i = time.perf_counter()
+    n = N_PATH_I
+    mesh, mesh1 = path_i_mesh(n), path_i_mesh(1)
+    log(f"[path I] mesh: {n} slots on "
+        f"{', '.join(str(d) for d in mesh)} ({torch.cuda.device_count()} "
+        f"card(s) on this machine; each slot its own host thread and CUDA "
+        f"stream, the threads taking turns)")
+    # I0
+    cfg0 = EncoderConfig(width=W, height=H, cu_size=16, gop_size=0, qp=32,
+                         sign_hiding=True, deblocking=False, sao=False,
+                         num_devices=n)
+    fr0 = frames[:N_PATH_I0]
+    runs = []
+    for m in (mesh, mesh1):
+        reset_launches()
+        t = time.perf_counter()
+        streams = encode_frames_sharded(cfg0, fr0, m)
+        torch.cuda.synchronize()
+        runs.append((len(m), time.perf_counter() - t, streams))
+        check(all(v == 0 for v in LAUNCHES.values()), dict(LAUNCHES))
+    check(runs[1][2] == runs[0][2], "I0: the slots changed the streams")
+    ref = encode_all(Encoder(dataclasses.replace(
+        cfg0, num_devices=1, num_frames_in_flight=N_PATH_I0)), fr0)
+    check([e.nals for e in ref] == runs[0][2],
+          "I0: a sharded stream != the single-device Encoder's")
+    log(f"[path I] I0 720p all-intra CU16 (bench.py's config), "
+        f"{N_PATH_I0} frames: "
+        + "; ".join(f"{k} slot(s) {dt:.3f} s = {N_PATH_I0 / dt:.3f} fps"
+                    for k, dt, _ in runs)
+        + f" (each run builds its slots' encoders); every stream equal to "
+        f"the single-device Encoder's on the card and across slot counts")
+    # I1
+    cfg1 = EncoderConfig(width=W, height=H, cu_size=16, gop_size=1, qp=32,
+                         sign_hiding=True, deblocking=True, sao=False,
+                         intra_period=0, reinit_gop_on_scene_change=False,
+                         num_devices=n)
+    seg = N_PATH_I1
+    fr1 = frames[:n * seg]
+    out = {}
+    for m, fr in ((mesh, fr1), (mesh1, fr1[:seg])):
+        times, restore = record_emissions()
+        reset_launches()
+        t = time.perf_counter()
+        try:
+            segs = gop_parallel_encode(cfg1, fr, m)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        dt = time.perf_counter() - t
+        launches = dict(LAUNCHES)
+        k = len(m)
+        check(launches["coarse_sweep_sads"] == k * (seg - 1), launches)
+        check(len(times) == k * seg, len(times))
+        ends = [t] + times[k - 1::k]    # frame t emitted in every segment
+        steps = [b - a for a, b in zip(ends, ends[1:])]
+        out[k] = (segs, dt, steps, launches["coarse_sweep_sads"])
+    segs, dt, steps, sweeps = out[n]
+    check(out[1][0][0] == segs[0], "I1: segment 0 over 1 slot != over "
+          f"{n} slots")
+    seq = None
+    for d in range(n):
+        enc = Encoder(cfg1)
+        if seq is not None:
+            # the device encoders of the segment before (the same config;
+            # Encoder.reconfigure keeps them so too)
+            enc._pipeline._intra_enc = seq._pipeline._intra_enc
+            enc._pipeline._inter_enc = seq._pipeline._inter_enc
+        seq = enc
+        efs = encode_all(enc, fr1[d * seg:(d + 1) * seg])
+        check([e.frame_type for e in efs] == ["I"] + ["P"] * (seg - 1))
+        check([x for e in efs for x in e.nals] == segs[d],
+              f"I1: segment {d} != the sequential Encoder's stream")
+    for k in (n, 1):
+        segs_k, dt_k, steps_k, sweeps_k = out[k]
+        log(f"[path I] I1 720p IPPP CU16 deblocking, {k} segment(s) of 1 I "
+            f"+ {seg - 1} P over {k} slot(s): {k * seg} frames in "
+            f"{dt_k:.3f} s = {k * seg / dt_k:.3f} fps; ms until frame t "
+            f"of every segment is emitted, t = 0..{seg - 1} (t = 1 spans "
+            f"two dispatch steps: depth 2) "
+            f"{', '.join(f'{x * 1e3:.1f}' for x in steps_k)}; coarse "
+            f"sweep launches {sweeps_k}")
+    log(f"[path I] I1: every segment equal to the sequential Encoder on "
+        f"the card; {sweeps} sweep launches counted under {n} slot threads")
+    # I2
+    t = time.perf_counter()
+    encode_frames_sharded_dryrun(N_PATH_I2, mesh=path_i_mesh(N_PATH_I2))
+    log(f"[path I] I2 the dry run over {N_PATH_I2} slots: passed "
+        f"({time.perf_counter() - t:.1f} s)")
+    log(f"[path I] I0-I2 took {time.perf_counter() - t_i:.1f} s")
+    return sweeps
+
+
+TREE_STAGES = {"_decide_impl": "decide", "_wavefront": "wavefront",
+               "_deblock": "deblock", "_sao": "sao", "_pack": "pack"}
+
+
+def stage_timer(enc, counter=None):
+    """Wrap the stages (TREE_STAGES) of the tree encoder enc: each runs
+    with the card synchronised around it, its seconds added up by name
+    and, with an OpCounter, its aten ops counted under its name. Returns
+    (the seconds by stage, a function that removes the wrappers)."""
+    from collections import Counter
+    seconds = Counter()
+    for attr, name in TREE_STAGES.items():
+        def staged(*a, _f=getattr(enc, attr), _name=name, **k):
+            if counter is not None:
+                counter.stage = _name
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return _f(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                seconds[_name] += time.perf_counter() - t
+                if counter is not None:
+                    counter.stage = "other"
+        setattr(enc, attr, staged)
+
+    def remove():
+        for attr in TREE_STAGES:
+            delattr(enc, attr)
+    return seconds, remove
+
+
 def phase_tree_stages(frame):
-    """Where path A's time goes: one 1080p CU32 tree frame split by stage
-    (decide, wavefront, deblock, SAO, pack), first timed (the card
-    synchronised around each stage), then the aten ops of its decision
-    pass and of its first COUNT_STEPS wavefront steps counted by a
+    """Where path A's time goes, beside the stage split of path C's CTU-32
+    I frame: the aten ops of a 1080p CU32 tree frame's decision pass and
+    of its first COUNT_STEPS wavefront steps counted by a
     TorchDispatchMode (all ops, and those that are not views, which bounds
     the kernel launches; every step runs the same ops); then
     torch.profiler over the decision pass and over the first
     PROFILE_STEPS wavefront steps."""
-    from collections import Counter
-
     from homerhevc_tpu_torch.api import Encoder
     from homerhevc_tpu_torch.tools.p_frame_ops import OpCounter
 
@@ -1954,48 +2180,24 @@ def phase_tree_stages(frame):
     enc = pipe._intra()
     frame = pipe._pad_frame(*frame)
     counter = OpCounter()
-    seconds = Counter()
-    stages = {"_decide_impl": "decide", "_wavefront": "wavefront",
-              "_deblock": "deblock", "_sao": "sao", "_pack": "pack"}
-    for attr, name in stages.items():
-        def staged(*a, _f=getattr(enc, attr), _name=name, **k):
-            counter.stage = _name
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            try:
-                return _f(*a, **k)
-            finally:
-                torch.cuda.synchronize()
-                seconds[_name] += time.perf_counter() - t
-                counter.stage = "other"
-        setattr(enc, attr, staged)
+    _, unstage = stage_timer(enc, counter)
     y, u, v = (torch.as_tensor(p, device=DEV)[None] for p in frame)
     qp = torch.tensor([32], dtype=torch.int32, device=DEV)
-    t = time.perf_counter()
-    enc._frame_impl(y, u, v, qp)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    timed = dict(seconds)
     n_count = min(COUNT_STEPS, enc.nsteps)
     with counter:
         d8, m8 = enc._decide_impl(y, u, v, qp)
         enc._wavefront(y, u, v, qp, d8, m8, n_steps=n_count)
     torch.cuda.synchronize()
+    unstage()
     ops, compute = counter.ops, counter.compute
-    names = list(stages.values())
-    log(f"[stages] 1080p CU32 tree frame alone: {wall:.3f} s; "
-        + ", ".join(f"{k} {timed[k]:.3f} s ({100 * timed[k] / wall:.1f}%)"
-                    for k in names))
     per_step = ops["wavefront"] / n_count
-    log(f"[stages] the same frame's aten ops (all / not views): decide "
-        f"{ops['decide']} / {compute['decide']}; the first {n_count} "
-        f"wavefront steps {ops['wavefront']} / {compute['wavefront']}, "
-        f"{per_step:.0f} ops ({compute['wavefront'] / n_count:.0f} not "
-        f"views) per step of {enc.nslot} CTB32 slots, "
-        f"{per_step * enc.nsteps:.0f} over its {enc.nsteps} steps")
-    for attr in stages:
-        delattr(enc, attr)
-    d8, m8 = enc._decide_impl(y, u, v, qp)
+    log(f"[stages] a 1080p CU32 tree frame's aten ops (all / not views): "
+        f"decide {ops['decide']} / {compute['decide']}; the first "
+        f"{n_count} wavefront steps {ops['wavefront']} / "
+        f"{compute['wavefront']}, {per_step:.0f} ops "
+        f"({compute['wavefront'] / n_count:.0f} not views) per step of "
+        f"{enc.nslot} CTB32 slots, {per_step * enc.nsteps:.0f} over its "
+        f"{enc.nsteps} steps")
     for label, fn in (
             ("decision pass", lambda: enc._decide_impl(y, u, v, qp)),
             (f"first {PROFILE_STEPS} wavefront steps",
@@ -2085,16 +2287,17 @@ def main():
     timed("phase 3 digests", phase_digests)
     launches = timed("main paths", phase_main_path, frames)
     tree_frames = bench_frames(N_PATH_D, w=W_TREE, h=H_TREE)
-    timed("path A", phase_tree_path, tree_frames[:F_TREE])
+    tree_slice = timed("path A", phase_tree_path, tree_frames[:F_TREE])
     sao_launches = timed("path B", phase_sao_ippp, frames)
     path_c_launches = timed("path C", phase_path_c, tree_frames[:N_PATH_C])
     path_d_launches, wide_launches = timed("path D", phase_path_d,
-                                           tree_frames)
+                                           tree_frames, tree_slice)
     path_e_launches = timed("path E", phase_path_e, frames, tree_frames[:2])
     path_f_launches = timed("path F", phase_path_f, frames)
     path_g_launches = timed("path G", phase_path_g, frames,
                             tree_frames[:N_PATH_G], g1)
     path_h_launches = timed("path H", phase_path_h, frames)
+    path_i_launches = timed("path I", phase_path_i, frames)
     timed("phase 5 profile", phase_profile, frames)
     timed("phase 5 tree stages", phase_tree_stages, tree_frames[0])
     for name in ("jax", "homerhevc_tpu"):
@@ -2105,7 +2308,7 @@ def main():
             ("coarse_sweep_sads", "720p R=16",
              launches["coarse_sweep_sads"] + sao_launches + path_c_launches
              + path_d_launches + path_e_launches + path_f_launches
-             + path_g_launches + path_h_launches),
+             + path_g_launches + path_h_launches + path_i_launches),
             ("coarse_sweep_sads_wide", "wide 1088 lines R=24",
              wide_launches)):
         err, ms, plain_ms, bound_ms, bound_by = rows[row]

@@ -11,8 +11,9 @@ device path needs from its golden/ oracle. The I, P and B frames the
 JAX package codes on golden/ take copies of those host programs
 (hevc/{transform,quantize,intra_pred,intra_frame,intra_tree,deblock,
 interp,rd_bits,inter_frame}.py), chosen by configuration as the JAX
-pipeline chooses them; more than one device, the one configuration the
-port does not cover, raises NotImplementedError.
+pipeline chooses them. parallel/mesh.py spreads all-intra frames or IPPP
+GOP segments over several devices (slots), one host thread and CUDA
+stream per slot.
 
 The coarse motion-search SAD sweep, the one Pallas kernel of the JAX
 package, is a hand-written CUDA kernel (csrc/me_sad.cu) built with nvcc at

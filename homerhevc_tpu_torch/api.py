@@ -5,9 +5,9 @@
     for ef in enc.flush(): ...
     stream = b"".join(ef.annex_b() for ef in frames)
 
-More than one device (num_devices > 1), the one configuration the port
-does not cover yet, raises NotImplementedError when the Encoder is built
-(engine/pipeline.py unported).
+An Encoder codes on its one device whatever num_devices says, as the JAX
+Encoder does; parallel/mesh.py spreads all-intra frames or IPPP GOP
+segments over several devices.
 """
 
 from __future__ import annotations

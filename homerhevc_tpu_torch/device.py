@@ -9,6 +9,8 @@ both cuBLAS matmuls and cuDNN: the intra predictor's float32 contraction
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -16,14 +18,24 @@ torch.backends.cudnn.allow_tf32 = False
 
 # launches of each hand-written kernel; a wrapper adds one where it
 # launches its kernel and nowhere else (the plain CPU version never counts)
-# (the sweep's 8-bit and wide-source entry points count apart)
+# (the sweep's 8-bit and wide-source entry points count apart); the slot
+# threads of a mesh (parallel/mesh.py) launch at once, so every change
+# goes through count_launch / reset_launches under one lock
 LAUNCHES: dict[str, int] = {"coarse_sweep_sads": 0,
                             "coarse_sweep_sads_wide": 0}
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one to LAUNCHES[name] (a read-modify-write: under the lock)."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCHES_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def resolve_device(device) -> torch.device:

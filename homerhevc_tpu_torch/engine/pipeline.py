@@ -57,10 +57,10 @@ picture.
 
 Rate control, WPP substreams and the native CABAC serializer work as in
 the JAX package (multi-reference slices and B slices with rectangular PUs
-take the Python serializer, as there). More than one device raises
-NotImplementedError when the pipeline is built, naming the ROADMAP.md
-Queue 1 item that will bring it. No route depends on the device found or
-on a failure.
+take the Python serializer, as there). The pipeline codes on its one
+device whatever num_devices says, as the JAX EncoderPipeline does (it
+never reads it); parallel/mesh.py spreads frames or GOP segments over
+several. No route depends on the device found or on a failure.
 """
 
 from __future__ import annotations
@@ -165,17 +165,6 @@ def inter_device_ok(cfg: EncoderConfig) -> bool:
     return maps_ok and geom_ok
 
 
-def unported(cfg: EncoderConfig) -> str | None:
-    """Why `cfg` (padded to whole CTUs) lies outside the configurations the
-    port covers, and the ROADMAP.md Queue 1 item that brings it; None when
-    it is covered. Every configuration of one device is covered: I, P and
-    B frames on the device programs where the JAX package runs its own,
-    else on the host programs it runs there."""
-    if cfg.num_devices != 1:
-        return "multi-GPU encoding (Queue 1 item 6)"
-    return None
-
-
 class _AsyncFetch:
     """Background fetch of a dispatched all-intra batch's wire data: the
     device->host copy and the native unpack release the GIL, so they
@@ -214,11 +203,6 @@ class TorchPipeline:
         cw, ch = -(-cfg.width // ctu) * ctu, -(-cfg.height // ctu) * ctu
         if (cw, ch) != (cfg.width, cfg.height):
             cfg = dataclasses.replace(cfg, width=cw, height=ch)
-        why = unported(cfg)
-        if why is not None:
-            raise NotImplementedError(
-                f"{why} is not ported to homerhevc_tpu_torch yet "
-                f"(ROADMAP.md)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ps = ParamSets.from_config(cfg)

@@ -2,7 +2,9 @@
 
 Builds libhevcenc.so into the package's _build/ directory on first use
 (g++ -O3); falls back to the pure-Python serializer when no compiler is
-available.
+available. The first use is under a lock: the slot threads of a mesh
+(parallel/mesh.py) may reach it at once, and each must get the library
+the first one built, not the Python serializer.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -18,6 +21,7 @@ _SRC = os.path.join(_DIR, "hevcenc.cpp")
 _BUILD = os.path.join(os.path.dirname(_DIR), "_build")
 _SO = os.path.join(_BUILD, "libhevcenc.so")
 _lib = None
+_lock = threading.Lock()     # guards _build and the loading in get_lib
 
 _I32P = ctypes.c_void_p
 
@@ -45,6 +49,14 @@ _load_failed = False
 
 
 def get_lib():
+    if _lib is not None:
+        return _lib
+    with _lock:
+        return _load()
+
+
+def _load():
+    """Build (if stale) and load the library; the caller holds _lock."""
     global _lib, _load_failed
     if _lib is not None:
         return _lib

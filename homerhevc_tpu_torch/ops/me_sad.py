@@ -31,7 +31,7 @@ import threading
 
 import torch
 
-from homerhevc_tpu_torch.device import LAUNCHES
+from homerhevc_tpu_torch.device import count_launch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "me_sad.cu")
@@ -172,11 +172,11 @@ def coarse_sweep_sads(sd: torch.Tensor, ref_pad: torch.Tensor, R: int,
                       dtype=torch.int32, device=sd.device)
     if sd.dtype == torch.uint8:
         launch(lib, sd, ref_pad, out, R, m)
-        LAUNCHES["coarse_sweep_sads"] += 1
+        count_launch("coarse_sweep_sads")
         return out
     clamped, excess = wide_parts(sd, m)
     launch(lib, clamped, ref_pad, out, R, m, excess)
-    LAUNCHES["coarse_sweep_sads_wide"] += 1
+    count_launch("coarse_sweep_sads_wide")
     return out
 
 

@@ -117,19 +117,28 @@ def dequantize(level: torch.Tensor, size: int, qp, is_intra: bool,
     return torch.clamp(out, -32768, 32767).to(torch.int32)
 
 
+# the stacked tables below are stacked on the host and copied once (a
+# blocking copy): a cached table is read from the CUDA streams of every
+# slot of a mesh (parallel/mesh.py), so it must be whole when it is
+# returned, not queued on the first caller's stream
+
+
 @lru_cache(maxsize=None)
 def _scan_tabs3(n: int, device: torch.device):
     """The three scans (diag, hor, ver) of an n-block stacked: (3, n*n)."""
-    tabs = [_scan_tabs(n, s, device) for s in (0, 1, 2)]
-    return (torch.stack([t[0] for t in tabs]),
-            torch.stack([t[1] for t in tabs]))
+    scans = np.stack([np.asarray(T.coeff_scan(n.bit_length() - 1, s),
+                                 np.int64) for s in (0, 1, 2)])
+    return (torch.as_tensor(scans, device=device),
+            torch.as_tensor(np.argsort(scans, axis=1), device=device))
 
 
 @lru_cache(maxsize=None)
 def _qc6_scan3(size: int, is_intra: bool, scaling_lists: bool,
                device: torch.device) -> torch.Tensor:
-    return torch.stack([_qc6_scan(size, is_intra, scaling_lists, s, device)
-                        for s in (0, 1, 2)])
+    q = _qc6_np(size, is_intra, scaling_lists).reshape(6, -1)
+    return torch.as_tensor(np.stack([
+        q[:, np.asarray(T.coeff_scan(size.bit_length() - 1, s))]
+        .reshape(6, -1, 16) for s in (0, 1, 2)]), device=device)
 
 
 def scan_class(modes: torch.Tensor, n: int, is_luma: bool):

@@ -6,8 +6,9 @@ the FAR level and intra-in-P, the bi-capable B program, the
 generalized-B chain, the intra and P programs with per-CTB QP maps, the
 CLI, an IPPP stream whose I frame takes the host programs, a
 three-reference stream whose later frames take the host P programs, an
-IBP stream with per-CTB QP maps) and the ops they add on the card against
-the same code on the CPU,
+IBP stream with per-CTB QP maps, the mesh's slots) and the ops they add
+on the card against the same code on the CPU, the sweep's launch count
+under four slot threads,
 and the port's parser on a stream coded on the card. They
 skip here with a reason. This file imports no jax, so on the card's machine it runs
 without the JAX package's conftest:
@@ -505,3 +506,52 @@ def test_ibp_with_maps_stream_on_card_matches_cpu(card):
     assert types == "IPBPB"
     assert launches == 4
     assert out["cuda"] == out["cpu"]
+
+
+def _mesh_clip():
+    """Four 128x64 frames of the bench clip (two GOP segments of two, or
+    two all-intra frames per slot)."""
+    from homerhevc_tpu_torch.tools.p_frame_ops import bench_clip
+    return bench_clip(128, 64, 4, 37)
+
+
+@pytest.mark.parametrize("fn", ["sharded", "gop"])
+def test_mesh_on_card_matches_cpu_slots(card, fn):
+    """encode_frames_sharded (all-intra CU16, deblocking) and
+    gop_parallel_encode (IPPP CU16, deblocking: 2 segments of I + P) over
+    2 slots on the card give the streams of the same over 2 CPU slots;
+    the sweep launches once per P frame of each segment."""
+    from homerhevc_tpu_torch.parallel.mesh import (encode_frames_sharded,
+                                                   gop_parallel_encode,
+                                                   make_mesh)
+    cfg = EncoderConfig(width=128, height=64, qp=32, cu_size=16,
+                        gop_size=0 if fn == "sharded" else 1,
+                        deblocking=True, sao=False, sign_hiding=True,
+                        num_devices=2, reinit_gop_on_scene_change=False)
+    encode = encode_frames_sharded if fn == "sharded" else \
+        gop_parallel_encode
+    frames = _mesh_clip()
+    slots = [card] * 2 if torch.cuda.device_count() < 2 else "cuda"
+    before = LAUNCHES["coarse_sweep_sads"]
+    got = encode(cfg, frames, make_mesh(2, slots))
+    launches = LAUNCHES["coarse_sweep_sads"] - before
+    assert got == encode(cfg, frames, make_mesh(2, "cpu"))
+    assert launches == (0 if fn == "sharded" else 2)
+
+
+def test_launches_count_exactly_under_four_slot_threads(card):
+    """gop_parallel_encode over 4 slot threads on the card (4 segments of
+    I + 3 P): the sweep's launches read 12, one per P frame, none lost to
+    the threads' concurrent counting."""
+    from homerhevc_tpu_torch.device import reset_launches
+    from homerhevc_tpu_torch.parallel.mesh import (gop_parallel_encode,
+                                                   make_mesh)
+    from homerhevc_tpu_torch.tools.p_frame_ops import bench_clip
+    cfg = EncoderConfig(width=128, height=64, qp=32, cu_size=16, gop_size=1,
+                        deblocking=True, sao=False, sign_hiding=True,
+                        num_devices=4, reinit_gop_on_scene_change=False)
+    reset_launches()
+    segs = gop_parallel_encode(cfg, bench_clip(128, 64, 16, 41),
+                               make_mesh(4, [card] * 4))
+    assert len(segs) == 4
+    assert LAUNCHES["coarse_sweep_sads"] == 12

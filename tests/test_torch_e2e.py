@@ -42,11 +42,40 @@ def _encode(enc, frames):
     return efs
 
 
+# the config fields the JAX CU16 intra program reads (SAO of its frames
+# is decided on the host), and those the P program reads besides (the
+# rest is host GOP and rate-control state)
+_INTRA_FIELDS = ("width", "height", "cu_size", "qp", "sign_hiding",
+                 "deblocking")
+_INTER_FIELDS = _INTRA_FIELDS + ("sao", "merge_rd_device")
+
+
+@pytest.fixture(scope="module")
+def jax_programs():
+    """The JAX intra and P programs by the fields they read, each built
+    once for the module's JAX Encoders (tracing a program takes seconds
+    on a CPU; several tests share a configuration's programs)."""
+    return {}
+
+
+def _jax_encoder(kw, programs):
+    """A JAX Encoder for kw whose intra and P programs come from (and go
+    into) programs, the jax_programs cache."""
+    enc = JaxEncoder(JaxConfig(**kw))
+    pipe = enc._pipeline
+    ki = ("intra",) + tuple(kw.get(f) for f in _INTRA_FIELDS)
+    kp = ("inter",) + tuple(kw.get(f) for f in _INTER_FIELDS)
+    pipe._tpu_intra = programs.setdefault(ki, pipe._get_tpu())
+    pipe._tpu_inter = programs.setdefault(kp, pipe._get_tpu_inter())
+    return enc
+
+
 @pytest.mark.parametrize("gop,batch,sao", [
     pytest.param(1, 1, False, id="1-1"), pytest.param(0, 2, False, id="0-2"),
     pytest.param(1, 1, True, id="1-1-sao"),
     pytest.param(0, 2, True, id="0-2-sao")])
-def test_torch_stream_matches_jax_and_decodes(gop, batch, sao, tmp_path):
+def test_torch_stream_matches_jax_and_decodes(gop, batch, sao, tmp_path,
+                                             jax_programs):
     """gop 1: the 4-frame IPPP CU16 slice; gop 0: batched all-intra. With
     SAO, on noisy frames: the I frames' SAO decided on the host and the P
     frames' in the P program, each P frame predicting from the filtered
@@ -58,7 +87,7 @@ def test_torch_stream_matches_jax_and_decodes(gop, batch, sao, tmp_path):
               num_frames_in_flight=batch)
     frames = _frames(np.random.RandomState(13), w, h, 4,
                      noise=25 if sao else 2)
-    want = _encode(JaxEncoder(JaxConfig(**kw)), frames)
+    want = _encode(_jax_encoder(kw, jax_programs), frames)
     enc = TorchEncoder(EncoderConfig(**kw), device="cpu")
     with SerializedSlices() as spy:
         got = _encode(enc, frames)
@@ -150,7 +179,7 @@ def test_port_runs_without_jax():
     assert r.stdout.strip().endswith("ok")
 
 
-def test_torch_idr_and_scene_cut_match_jax():
+def test_torch_idr_and_scene_cut_match_jax(jax_programs):
     """Scene-change IDRs (a hard cut into frame 2 and back out of it at
     frame 3) break and restart the port's device reference chain exactly
     as in the JAX pipeline: identical frame types and Annex-B bytes."""
@@ -160,7 +189,7 @@ def test_torch_idr_and_scene_cut_match_jax():
     frames = _frames(np.random.RandomState(15), w, h, 4)
     y, u, v = frames[2]
     frames[2] = (255 - y, v, u)
-    want = _encode(JaxEncoder(JaxConfig(**kw)), frames)
+    want = _encode(_jax_encoder(kw, jax_programs), frames)
     got = _encode(TorchEncoder(EncoderConfig(**kw), device="cpu"), frames)
     assert [e.frame_type for e in got] == ["I", "P", "I", "I"]
     assert [e.frame_type for e in want] == [e.frame_type for e in got]

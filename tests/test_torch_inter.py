@@ -23,10 +23,19 @@ _FIELDS = ("mv", "coef_y", "coef_u", "coef_v", "skip", "inter_mode",
            "merge_idx", "mvp_flag")
 
 
-def _compare(cfg, src, ref):
+@pytest.fixture(scope="module")
+def jax_programs():
+    """The JAX P programs by (sign hiding, deblocking), each traced once
+    for the module (the ties test shares the SBH + deblocking one)."""
+    return {}
+
+
+def _compare(cfg, src, ref, programs):
     jcfg = JaxConfig(**dataclasses.asdict(cfg))
-    jd, jy, ju, jv = TpuInterEncoder(JaxParamSets.from_config(jcfg),
-                                     jcfg).encode_frame(src, ref)
+    key = (cfg.sign_hiding, cfg.deblocking)
+    if key not in programs:
+        programs[key] = TpuInterEncoder(JaxParamSets.from_config(jcfg), jcfg)
+    jd, jy, ju, jv = programs[key].encode_frame(src, ref)
     enc = TorchInterEncoder(ParamSets.from_config(cfg), cfg, device="cpu")
     td, ty, tu, tv = enc.encode_frame(src, reference_from_numpy(ref, "cpu"))
     for f in _FIELDS:
@@ -38,7 +47,7 @@ def _compare(cfg, src, ref):
 
 @pytest.mark.parametrize("sbh,deblock", [(False, False), (True, False),
                                          (False, True), (True, True)])
-def test_torch_inter_matches_jax(sbh, deblock):
+def test_torch_inter_matches_jax(sbh, deblock, jax_programs):
     rng = np.random.RandomState(12)    # own stream, not the session rng
     w, h = 128, 64
     cfg = EncoderConfig(width=w, height=h, qp=32, gop_size=1, intra_period=0,
@@ -49,10 +58,10 @@ def test_torch_inter_matches_jax(sbh, deblock):
     ref = (np.clip(np.roll(y, 3, 1).astype(int)
                    + rng.randint(-3, 4, y.shape), 0, 255).astype(np.uint8),
            np.roll(u, 1, 1), np.roll(v, 1, 1))
-    _compare(cfg, (y, u, v), ref)
+    _compare(cfg, (y, u, v), ref, jax_programs)
 
 
-def test_torch_inter_ties_match_jax():
+def test_torch_inter_ties_match_jax(jax_programs):
     """Flat content: every coarse offset, vote count and fine SAD ties,
     so every argmin/argmax must take the first extremum as JAX does."""
     w, h = 128, 64
@@ -62,4 +71,4 @@ def test_torch_inter_ties_match_jax():
     y = np.full((h, w), 100, np.uint8)
     y[:, 64:] = 120                                  # one vertical edge
     u = np.full((h // 2, w // 2), 128, np.uint8)
-    _compare(cfg, (y, u, u), (y, u, u))
+    _compare(cfg, (y, u, u), (y, u, u), jax_programs)

@@ -4,8 +4,7 @@ or the JAX package, nor does a run of `python -m
 homerhevc_tpu_torch.cli`; a 64x64 I + P encode, an
 intra CU-tree encode, a CTU-32 IPPP encode, an IBP encode and a
 generalized-B encode, all with SAO, run with both blocked; more than one
-device, the one configuration outside the port, raises
-NotImplementedError when the Encoder is built (there is no fallback), and
+device encodes on the Encoder's one device, as in the JAX package, and
 the configurations the last slices brought encode on the CPU and decode
 (FFmpeg) to the port's recon; the Encoder defaults to the card."""
 
@@ -200,10 +199,29 @@ def _case(changes, item, index, named=None):
 @pytest.mark.parametrize("changes,item", [
     _case(dict(num_devices=2), "item 6", 9)])
 def test_unported_config_raises(changes, item):
-    """More than one device (Queue 1 item 6) is the one configuration the
-    port refuses; every other configuration of the JAX package encodes."""
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-        Encoder(EncoderConfig(**{**_BASE, **changes}), device="cpu")
+    """More than one device (Queue 1 item 6), the last configuration the
+    port refused, encodes as the JAX Encoder encodes it: on the Encoder's
+    one device (neither pipeline reads num_devices; parallel/mesh.py
+    spreads frames over several). I + P at CU16 with intra_rdo, coded on
+    the host programs of both packages (so no JAX program is traced here;
+    the device programs with num_devices 8 are held to the JAX package in
+    test_torch_mesh.py): the JAX Encoder's bytes. The port refuses no
+    configuration of the JAX package."""
+    from homerhevc_tpu.api import Encoder as JaxEncoder
+    from homerhevc_tpu.config import EncoderConfig as JaxConfig
+    kw = {**_BASE, "intra_rdo": True, **changes}
+    yy, xx = np.mgrid[0:64, 0:64]
+    y = (100 + 60 * np.sin(xx / 5.0) + yy).astype(np.uint8)
+    c = np.full((32, 32), 128, np.uint8)
+    frames = [(np.roll(y, 3 * t, 1), c, c) for t in range(2)]
+    streams = []
+    for enc in (Encoder(EncoderConfig(**kw), device="cpu"),
+                JaxEncoder(JaxConfig(**kw))):
+        efs = [e for f in frames for e in enc.encode(*f)]
+        efs += list(enc.flush())
+        assert [e.frame_type for e in efs] == ["I", "P"]
+        streams.append(b"".join(e.annex_b() for e in efs))
+    assert streams[0] == streams[1]
 
 
 @pytest.mark.parametrize("changes,types", [
