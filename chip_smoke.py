@@ -62,8 +62,8 @@ passed):
      the recon, every slice parsed back by the port's SliceDataParser),
      F1 with half-pel ME, scaling lists and WPP (1 I + 7 P, I + 2 P equal
      on the CPU), `python -m homerhevc_tpu_torch.cli` in a subprocess
-     (the same bytes, no jax imported), and the measure_rd, prof_device
-     and bench twins; path G, the host intra programs (slice 7), each I
+     (the same bytes, no jax imported), and the measure_rd and
+     prof_device twins; path G, the host intra programs (slice 7), each I
      frame on the host and its P frames on the device: G0 1080p (1088
      coded lines) IPPP CTU 64 without intra_rdo, deblocking + SAO (1 I +
      7 P, I + first P equal on the CPU, CU64s in the P frames), G1 RD_FULL
@@ -833,6 +833,7 @@ def phase_main_path(frames):
     torch.cuda.synchronize()
     enc = Encoder(cfg)
     PROFILER.reset()
+    PROFILER.enable()
     reset_launches()
     t = time.perf_counter()
     efs = encode_all(enc, frames[:N_IPPP])
@@ -951,6 +952,7 @@ def phase_sao_ippp(frames):
     torch.cuda.synchronize()
     enc = Encoder(cfg)
     PROFILER.reset()
+    PROFILER.enable()
     reset_launches()
     t = time.perf_counter()
     efs = encode_all(enc, frames[:N_SAO])
@@ -1010,6 +1012,7 @@ def phase_path_c(frames):
             # the card synchronised around each)
             stages, unstage = stage_timer(pipe._intra())
         PROFILER.reset()
+        PROFILER.enable()
         reset_launches()
         t = time.perf_counter()
         efs = encode_all(enc, frames)
@@ -1107,6 +1110,7 @@ def phase_path_d(frames, tree_slice):
     pipe = enc._pipeline
     descs, emitted = spy_emit(pipe)
     PROFILER.reset()
+    PROFILER.enable()
     reset_launches()
     t = time.perf_counter()
     efs = encode_all(enc, frames)
@@ -1217,6 +1221,7 @@ def phase_path_e(frames, frames_1080):
         pipe = enc._pipeline
         descs, emitted = spy_emit(pipe)
         PROFILER.reset()
+        PROFILER.enable()
         reset_launches()
         t = time.perf_counter()
         efs = encode_all(enc, frames[:N_PATH_E])
@@ -1367,8 +1372,8 @@ def phase_path_f(frames):
     same bytes and imports neither jax nor homerhevc_tpu. Then the twins:
     tools/measure_rd on F0's file (8 frames, QPs 32 and 37; at QP 32 the
     kbps of the CLI's first 8 frames), tools/prof_device (me, impl and
-    fetch at 1088 lines, the CU32 tree P program), tools/bench (32 frames,
-    32 in flight). Returns the sweep's launches of F0 and F1."""
+    fetch at 1088 lines, the CU32 tree P program). Returns the sweep's
+    launches of F0 and F1."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="chip_smoke_f_") as tmp:
         return _path_f(frames, tmp)
@@ -1384,7 +1389,7 @@ def _path_f(frames, tmp):
                                                 desc_mismatches,
                                                 parse_slice_nal,
                                                 split_annexb)
-    from homerhevc_tpu_torch.tools import bench, measure_rd, prof_device
+    from homerhevc_tpu_torch.tools import measure_rd, prof_device
     from homerhevc_tpu_torch.tools.p_frame_ops import read_yuv, write_yuv
     from homerhevc_tpu_torch.utils.profiler import PROFILER
     t_f = time.perf_counter()
@@ -1406,6 +1411,7 @@ def _path_f(frames, tmp):
                                 ("F1 config 2 + half-pel + scaling lists + "
                                  "WPP", "f1", F1_ARGS, N_PATH_F1)):
         PROFILER.reset()
+        PROFILER.enable()
         reset_launches()
         with SerializedSlices() as spy:
             t = time.perf_counter()
@@ -1543,11 +1549,6 @@ def _path_f(frames, tmp):
     for row in rows:
         log(f"[path F] prof_device: {json.dumps(row)}")
     log(f"[path F] prof_device ({dt:.1f} s, {n_k} sweeps)")
-    rows, dt, _ = twin(bench.main, ["--frames", "32", "--in-flight", "32"])
-    check(list(rows[0]) == ["metric", "value", "unit", "vs_baseline"]
-          and rows[0]["value"] > 0, rows)
-    log(f"[path F] bench: {json.dumps(rows[0])} ({dt:.1f} s, 32 frames "
-        f"after two warm batches of 32)")
     log(f"[path F] took {time.perf_counter() - t_f:.1f} s")
     return sweeps
 
@@ -1591,7 +1592,7 @@ def run_path_g(label, cfg, frames, n_cpu, profile=True):
     coded in the card's run (numpy on this host either way: the CPU run
     checks the device P frames coded from it); with profile, one P frame
     under torch.profiler. Logs fps, the I frame's host seconds
-    (analyze_intra_host), ms per P frame, launches and device busy per P
+    (the intra.host scope), ms per P frame, launches and device busy per P
     frame. Returns (EncodedFrames, FrameDescs, pipeline, sweep
     launches)."""
     from homerhevc_tpu_torch.api import Encoder
@@ -1602,6 +1603,7 @@ def run_path_g(label, cfg, frames, n_cpu, profile=True):
     descs, emitted = spy_emit(pipe)
     host_i = record_host_i_frames(pipe)
     PROFILER.reset()
+    PROFILER.enable()
     reset_launches()
     t = time.perf_counter()
     efs = encode_all(enc, frames)
@@ -1611,8 +1613,8 @@ def run_path_g(label, cfg, frames, n_cpu, profile=True):
     n_p = len(frames) - 1
     check(launches["coarse_sweep_sads"] == n_p, launches)
     check(pipe._intra_enc is None, "a device intra encoder was built")
-    host_s = PROFILER.totals["analyze_intra_host"]
-    check(PROFILER.counts["analyze_intra_host"] == 1, PROFILER.counts)
+    host_s = PROFILER.totals["intra.host"]
+    check(PROFILER.counts["intra.host"] == 1, PROFILER.counts)
     floor = 18.0 if cfg.bitrate_mode else 25.0
     mean_psnr = check_frames(efs, frames, ["I"] + ["P"] * n_p, floor)
     prof = "not profiled"
@@ -1628,8 +1630,8 @@ def run_path_g(label, cfg, frames, n_cpu, profile=True):
     bits = [e.bits for e in efs]
     log(f"[path G] {label}: {len(frames)} frames (1 I + {n_p} P) in "
         f"{t_end - t:.3f} s = {len(frames) / (t_end - t):.4f} fps; I frame "
-        f"{emitted[0] - t:.3f} s ({host_s:.3f} s analyze_intra_host, "
-        f"{PROFILER.totals['sao']:.3f} s host SAO); P frames "
+        f"{emitted[0] - t:.3f} s ({host_s:.3f} s intra.host, "
+        f"{PROFILER.totals['sao.decide']:.3f} s host SAO); P frames "
         f"{(t_end - emitted[0]) / n_p * 1e3:.1f} ms each; one P frame "
         f"{prof}; bits/frame "
         f"{np.mean(bits):.0f} (I {bits[0]}); luma PSNR {mean_psnr:.2f} dB; "
@@ -1733,6 +1735,7 @@ def phase_path_g(frames, frames_1080, frames_g1):
             c[:, :32] = 128
     enc2 = Encoder(cfg2)
     PROFILER.reset()
+    PROFILER.enable()
     reset_launches()
     with SerializedSlices() as spy:
         t = time.perf_counter()
@@ -1759,8 +1762,8 @@ def phase_path_g(frames, frames_1080, frames_g1):
     log(f"[path G] G2 720p all-intra CU16 AQ + deblocking qp32 "
         f"({N_PATH_G2} frames in flight): {N_PATH_G2} frames in "
         f"{dt2:.3f} s = {N_PATH_G2 / dt2:.4f} fps; I frames "
-        f"{PROFILER.totals['analyze_intra_host'] / N_PATH_G2:.3f} s each "
-        f"analyze_intra_host; bits/frame "
+        f"{PROFILER.totals['intra.host'] / N_PATH_G2:.3f} s each "
+        f"intra.host; bits/frame "
         f"{np.mean([e.bits for e in efs2]):.0f}; luma PSNR {mean2:.2f} dB; "
         f"CTBs away from their slice QP {100 * share2:.1f}%; 8x8 units "
         f"deblocked at the predictor's QP, not their map's: {uncoded}; "
@@ -1820,6 +1823,7 @@ def run_path_h(label, cfg, frames, types, sweeps, n_cpu=0):
     from homerhevc_tpu_torch.utils.profiler import PROFILER
     enc = Encoder(cfg)
     PROFILER.reset()
+    PROFILER.enable()
     reset_launches()
     with SerializedSlices() as spy:
         t = time.perf_counter()

@@ -28,15 +28,18 @@ class EncodedFrame:
 
     `recon` may be passed as a zero-arg callable; it is then materialized
     on first access, so reconstruction planes stay on the device unless a
-    consumer (recon dump, PSNR, tests) reads them."""
+    consumer (recon dump, PSNR, tests) reads them. `trace`: the frame's
+    lifecycle stamps (utils.profiler.FrameTrace) where the tracer was on
+    when it was pushed, else None."""
 
     def __init__(self, poc: int, frame_type: str, nals: list[bytes],
-                 recon=None, avg_qp: float = 0.0):
+                 recon=None, avg_qp: float = 0.0, trace=None):
         self.poc = poc
         self.frame_type = frame_type
         self.nals = nals
         self._recon = recon  # {'y','u','v'} uint8 planes, or thunk
         self.avg_qp = avg_qp
+        self.trace = trace
 
     @property
     def recon(self) -> Optional[dict]:

@@ -162,6 +162,9 @@ def main(argv=None) -> int:
         fin = files.enter_context(open(args.infile, "rb"))
         fout = files.enter_context(open(args.outfile, "wb"))
         fin.seek(args.skipped_frames * w * h * 3 // 2)
+        if args.profile:
+            from homerhevc_tpu_torch.utils.profiler import PROFILER
+            files.enter_context(PROFILER.enabled())
 
         def handle(ef):
             nonlocal total_bits, n_done
@@ -201,7 +204,6 @@ def main(argv=None) -> int:
         ay, au, av = tracker.average
         print(f"average PSNR Y {ay:.2f} U {au:.2f} V {av:.2f}")
     if args.profile:
-        from homerhevc_tpu_torch.utils.profiler import PROFILER
         print(PROFILER.report())
     return 0
 

@@ -40,7 +40,8 @@ from homerhevc_tpu_torch.device import resolve_device
 from homerhevc_tpu_torch.engine.intra_encoder import (DevicePlane, _sh1,
                                                       _u8, _parse_cg_wire,
                                                       _unpack_cg_frame,
-                                                      as_device_plane)
+                                                      as_device_plane,
+                                                      fetch_planes)
 from homerhevc_tpu_torch.ops import intra as dip
 from homerhevc_tpu_torch.ops.deblock import deblock_chroma_bs, deblock_luma_bs
 from homerhevc_tpu_torch.ops.interp import (LUMA_TAPS, extract_patches,
@@ -1313,11 +1314,12 @@ class TorchInterEncoder:
         return self._run(self._impl_b, (*src, *ref0, *ref1), avg_dist, qp)
 
     def _run(self, impl, planes, avg_dist: float, qp, **kw):
-        qp = self.cfg.qp if qp is None else int(qp)
-        zf = torch.tensor(zf_multiplier(avg_dist, qp), dtype=torch.float32,
-                          device=self.device)
-        planes = [as_device_plane(a, self.device) for a in planes]
-        with PROFILER.scope("disp_run"):
+        PROFILER.count("inter.frames")
+        with PROFILER.scope("inter.dispatch"):
+            qp = self.cfg.qp if qp is None else int(qp)
+            zf = torch.tensor(zf_multiplier(avg_dist, qp),
+                              dtype=torch.float32, device=self.device)
+            planes = [as_device_plane(a, self.device) for a in planes]
             out = impl(*planes, zf, qp, **kw)
         self.last_dev = (out[0], out[1], out[2])
         return out
@@ -1334,9 +1336,16 @@ class TorchInterEncoder:
         intra-in-P; is_b: a B slice of uni-L0 CUs; ref_dists feed the
         AMVP scaling of the tree's syntax selection; qp_map: the per-CTB QP
         map the frame was dispatched with (its program ran no intra-in-P),
-        attached per 8x8 unit for the cu_qp_delta serializer."""
+        attached per 8x8 unit for the cu_qp_delta serializer. While the
+        tracer is on, the desc carries d2h_bytes: the meta buffer, plus
+        the full planes where its wire overflowed."""
+        with PROFILER.scope("inter.fetch"):
+            return self._fetch(out, is_b, bi, ref_dists, qp_map)
+
+    def _fetch(self, out, is_b, bi, ref_dists, qp_map):
         recon_y, recon_u, recon_v, ly, lu, lv, meta = out
         meta_np = meta.cpu().numpy()
+        PROFILER.count("d2h_bytes", meta_np.nbytes)
         gh, gw = self.gh, self.gw
         gh2, gw2 = self.gh2, self.gw2
         off = 0
@@ -1381,9 +1390,12 @@ class TorchInterEncoder:
                               self.cg_C, E)
         shapes = [(self.h, self.w), (self.h // 2, self.w // 2),
                   (self.h // 2, self.w // 2)]
-        py, pu, pv = _unpack_cg_frame(
-            wire, 0, n_tot, shapes,
-            lambda: (ly.cpu().numpy(), lu.cpu().numpy(), lv.cpu().numpy()))
+        full = []
+
+        def fallback():
+            full.extend(fetch_planes(ly, lu, lv))
+            return full
+        py, pu, pv = _unpack_cg_frame(wire, 0, n_tot, shapes, fallback)
         cu = self.cu
         desc = FrameDesc.alloc(self.w, self.h)
         desc.pred_mode[:] = MODE_INTER
@@ -1400,6 +1412,8 @@ class TorchInterEncoder:
         desc.coef_u = np.ascontiguousarray(pu, np.int16)
         desc.coef_v = np.ascontiguousarray(pv, np.int16)
         desc.row_ssd_y = row_ssd     # exact luma SSD per row vs source
+        if PROFILER.on:
+            desc.d2h_bytes = meta_np.nbytes + sum(a.nbytes for a in full)
         desc.sao_params = sao_params  # device-decided (recon pre-filtered)
         if qp_map is not None:
             r = self.ps.ctu_size // 8
@@ -1439,11 +1453,11 @@ class TorchInterEncoder:
                 d32r = np.repeat(np.repeat(dir32.astype(np.uint8), 4, 0), 4,
                                  1)
                 desc.inter_dir[:ch.shape[0], :ch.shape[1]][ch] = d32r[ch]
-            with PROFILER.scope("fetch_syntax"):
+            with PROFILER.scope("inter.syntax"):
                 select_inter_syntax_tree(self.ps, desc, is_b=is_b or bi,
                                          dists=ref_dists)
         else:
-            with PROFILER.scope("fetch_syntax"):
+            with PROFILER.scope("inter.syntax"):
                 select_inter_syntax(self.ps, desc, cu, is_b=is_b)
         return (desc, DevicePlane(recon_y), DevicePlane(recon_u),
                 DevicePlane(recon_v))

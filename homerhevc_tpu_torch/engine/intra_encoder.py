@@ -129,7 +129,18 @@ class DevicePlane:
 
     def __array__(self, dtype=None, copy=None):
         a = self.tensor.cpu().numpy()
+        PROFILER.count("d2h_bytes", a.nbytes)
         return a.astype(dtype) if dtype is not None else a
+
+
+def fetch_planes(*planes):
+    """The full coefficient planes of a frame whose wire overflowed a
+    static capacity, as host arrays (counted as an overflow and its
+    bytes)."""
+    out = tuple(p.cpu().numpy() for p in planes)
+    PROFILER.count("wire_overflows")
+    PROFILER.count("d2h_bytes", sum(a.nbytes for a in out))
+    return out
 
 
 def as_device_plane(a, device: torch.device) -> torch.Tensor:
@@ -174,10 +185,12 @@ class WireFrameEncoder:
     reach _frame_impl as a fifth argument only when given."""
 
     def pack_upload(self, frames):
-        return pack_frames(frames, self.w, self.h, self.device)
+        with PROFILER.scope("intra.pack_upload"):
+            return pack_frames(frames, self.w, self.h, self.device)
 
     def dispatch_packed(self, handle, qps, qp_maps=None):
-        with PROFILER.scope("disp_run"):
+        PROFILER.count("intra.frames", len(qps))
+        with PROFILER.scope("intra.dispatch"):
             qp = torch.as_tensor(np.asarray(qps, np.int32),
                                  device=self.device)
             planes = unpack_frames(handle, self.w, self.h)
@@ -200,39 +213,45 @@ class WireFrameEncoder:
         """Download the compact wire buffer and rebuild FrameDescs;
         reconstruction planes stay device-resident (DevicePlane). qp_maps:
         the host's per-CU maps of an AQ dispatch, attached to each desc
-        for the cu_qp_delta serializer."""
-        ry, ru, rv, ly, lu, lv, meta = out
-        with PROFILER.scope("fetch_meta"):
-            meta_np = meta.cpu().numpy()           # ONE device->host copy
-        n_tot = self.w * self.h * 3 // 2
-        off = self._meta_prefix()
-        wire = _parse_cg_wire(meta_np, off, n_tot, self.pack_C, self.cg_C,
-                              esc_capacity(n_tot, self.pack_C))
-        shapes = [(self.h, self.w), (self.h // 2, self.w // 2),
-                  (self.h // 2, self.w // 2)]
-        results = []
-        with PROFILER.scope("fetch_unpack"):
-            for i in range(n_frames):
-                desc = self._desc(meta_np[i, :off])
-                desc.cg_wire = _wire_frame(wire, i, shapes)
-                if desc.cg_wire is None:       # a wire capacity overflowed
-                    planes = _unpack_cg_frame(
-                        wire, i, n_tot, shapes,
-                        lambda: (ly[i].cpu().numpy(), lu[i].cpu().numpy(),
-                                 lv[i].cpu().numpy()))
-                    desc.coef_y, desc.coef_u, desc.coef_v = (
-                        np.ascontiguousarray(p, np.int16) for p in planes)
-                else:     # wire-direct: FrameDesc.densify on demand
-                    desc.coef_y = desc.coef_u = desc.coef_v = None
-                if qp_maps is not None:
-                    # per-8x8 targets (the device quantized with exactly
-                    # these per-CU QPs)
-                    r = self.cu // 8
-                    desc.qp_map = np.repeat(np.repeat(
-                        np.asarray(qp_maps[i], np.int8), r, 0), r, 1)
-                results.append((desc, DevicePlane(ry, i),
-                                DevicePlane(ru, i), DevicePlane(rv, i)))
-        return results
+        for the cu_qp_delta serializer. While the tracer is on, each desc
+        carries d2h_bytes: its row of the meta buffer, plus its full planes
+        where its wire overflowed."""
+        with PROFILER.scope("intra.fetch"):
+            ry, ru, rv, ly, lu, lv, meta = out
+            with PROFILER.scope("intra.fetch.d2h"):
+                meta_np = meta.cpu().numpy()   # ONE device->host copy
+            PROFILER.count("d2h_bytes", meta_np.nbytes)
+            n_tot = self.w * self.h * 3 // 2
+            off = self._meta_prefix()
+            wire = _parse_cg_wire(meta_np, off, n_tot, self.pack_C,
+                                  self.cg_C, esc_capacity(n_tot, self.pack_C))
+            shapes = [(self.h, self.w), (self.h // 2, self.w // 2),
+                      (self.h // 2, self.w // 2)]
+            results = []
+            with PROFILER.scope("intra.fetch.unpack"):
+                for i in range(n_frames):
+                    desc = self._desc(meta_np[i, :off])
+                    desc.cg_wire = _wire_frame(wire, i, shapes)
+                    nbytes = meta_np.shape[1]
+                    if desc.cg_wire is None:   # a wire capacity overflowed
+                        planes = fetch_planes(ly[i], lu[i], lv[i])
+                        nbytes += sum(p.nbytes for p in planes)
+                        desc.coef_y, desc.coef_u, desc.coef_v = (
+                            np.ascontiguousarray(p, np.int16)
+                            for p in planes)
+                    else:     # wire-direct: FrameDesc.densify on demand
+                        desc.coef_y = desc.coef_u = desc.coef_v = None
+                    if qp_maps is not None:
+                        # per-8x8 targets (the device quantized with
+                        # exactly these per-CU QPs)
+                        r = self.cu // 8
+                        desc.qp_map = np.repeat(np.repeat(
+                            np.asarray(qp_maps[i], np.int8), r, 0), r, 1)
+                    if PROFILER.on:
+                        desc.d2h_bytes = nbytes
+                    results.append((desc, DevicePlane(ry, i),
+                                    DevicePlane(ru, i), DevicePlane(rv, i)))
+            return results
 
     def encode_frames(self, ys, us, vs, qps=None, qp_maps=None):
         """Batched: lists of F frames -> list of (desc, ry, ru, rv)."""

@@ -165,6 +165,11 @@ def inter_device_ok(cfg: EncoderConfig) -> bool:
     return maps_ok and geom_ok
 
 
+class _Traced(tuple):
+    """A pushed source frame (y, u, v) that carries its lifecycle stamps
+    (`trace`, a utils.profiler.FrameTrace) while the tracer is on."""
+
+
 class _AsyncFetch:
     """Background fetch of a dispatched all-intra batch's wire data: the
     device->host copy and the native unpack release the GIL, so they
@@ -176,8 +181,10 @@ class _AsyncFetch:
         self.qp = qp
         self._result = None
         self._err = None
+        PROFILER.stamp(frames, "fetch")
 
         def run():
+            PROFILER.set_role("fetch")
             try:
                 self._result = enc.fetch_frames(out, len(frames),
                                                 qp_maps=qp_maps)
@@ -187,9 +194,11 @@ class _AsyncFetch:
         self._t.start()
 
     def join(self):
-        self._t.join()
+        with PROFILER.scope("intra.fetch_join"):
+            self._t.join()
         if self._err is not None:
             raise self._err
+        PROFILER.stamp(self.frames, "fetched")
         return self._result, self.frames, self.qp
 
 
@@ -338,15 +347,42 @@ class TorchPipeline:
 
     # ---- I frames -----------------------------------------------------------
 
-    def _analyze_intra(self, y, u, v, qp):
+    def _analyze_intra(self, fr, qp):
         """One I frame, inline: on the device programs where they serve the
         configuration, else on the host programs."""
         if not self._intra_device:
-            with PROFILER.scope("analyze_intra_host"):
-                return self._analyze_intra_host(y, u, v, qp)
-        with PROFILER.scope("analyze_intra_device"):
-            return self._intra().encode_frame(y, u, v, qp,
-                                              qp_map=self._aq_map(y, qp))
+            return self._host(fr, "intra.host", self._analyze_intra_host,
+                              *fr, qp)
+        enc = self._intra()
+        y, u, v = fr
+        qp_map = self._aq_map(y, qp)
+        maps = None if qp_map is None else [qp_map]
+        return self._inline(
+            fr, lambda: enc.dispatch_frames([y], [u], [v], qps=[qp],
+                                            qp_maps=maps),
+            lambda out: enc.fetch_frames(out, 1, qp_maps=maps)[0])
+
+    @staticmethod
+    def _host(fr, name, analyze, *args, **kw):
+        """analyze(*args, **kw): a host program coding the frame fr, in the
+        scope `name`; its trace's dispatch is the start, fetch and fetched
+        the end."""
+        PROFILER.stamp((fr,), "dispatch")
+        with PROFILER.scope(name):
+            res = analyze(*args, **kw)
+        PROFILER.stamp((fr,), "fetch", "fetched")
+        return res
+
+    @staticmethod
+    def _inline(fr, dispatch, fetch):
+        """fetch(dispatch()): the frame fr on a device program, launched
+        and fetched at once, its trace stamped at each step."""
+        PROFILER.stamp((fr,), "dispatch")
+        out = dispatch()
+        PROFILER.stamp((fr,), "fetch")
+        res = fetch(out)
+        PROFILER.stamp((fr,), "fetched")
+        return res
 
     def _analyze_intra_host(self, y, u, v, qp):
         """The host I-frame programs, as the JAX package's
@@ -404,7 +440,7 @@ class TorchPipeline:
         st = {SLICE_I: "I", SLICE_P: "P"}.get(slice_type, "B")
         dists = _ref_dists(poc, refs_before, refs_after, l1_swap)
         num_ref_l0, rdl0 = _mref(desc, refs_before, poc)
-        with PROFILER.scope("ser_native"):
+        with PROFILER.scope("serialize.cabac"):
             res = None if rdl0 is not None else native.encode_slice_native(
                 ps, desc, init_contexts(st, qp), ps.sign_hiding,
                 slice_type=slice_type, sao_params=sao_params, wpp=ps.wpp,
@@ -418,7 +454,7 @@ class TorchPipeline:
             payload, row_sizes = res
             self._last_row_sizes = row_sizes
             # entry points count escaped bytes (spec 7.4.7.1)
-            with PROFILER.scope("ser_escapes"):
+            with PROFILER.scope("serialize.escapes"):
                 esc = ebsp_row_escapes(payload, row_sizes)
             offsets = [s + e for s, e in zip(row_sizes[:-1], esc[:-1])]
         else:
@@ -430,7 +466,7 @@ class TorchPipeline:
                          ref_pocs_after=refs_after, l1_swap=l1_swap,
                          num_ref_l0=num_ref_l0)
         bw = write_slice_header(ps, sp, entry_point_offsets=offsets)
-        with PROFILER.scope("ser_nal"):
+        with PROFILER.scope("serialize.nal"):
             return make_nal(nal_type, bw.get_bytes() + payload)
 
     def _serialize_python(self, desc, slice_type, st, qp, sao_params, dists,
@@ -494,7 +530,7 @@ class TorchPipeline:
         device_sao = sao_params is not None
         if self.ps.sao_enabled and not device_sao:
             ctu = self.ps.ctu_size
-            with PROFILER.scope("sao"):
+            with PROFILER.scope("sao.decide"):
                 ry, ru, rv = (np.asarray(ry), np.asarray(ru), np.asarray(rv))
                 sao_params = sao_decide(src, (ry, ru, rv), ctu, qp)
                 ry = sao_apply_component(ry, sao_params, 0, ctu)
@@ -543,11 +579,16 @@ class TorchPipeline:
                     "u": np.asarray(ru, np.uint8)[:oh // 2, :ow // 2],
                     "v": np.asarray(rv, np.uint8)[:oh // 2, :ow // 2]}
         ftype = {SLICE_I: "I", SLICE_P: "P"}.get(slice_type, "B")
+        trace = getattr(src, "trace", None)
         ef = EncodedFrame(self.poc if display_poc is None else display_poc,
-                          ftype, nals, recon=recon_thunk, avg_qp=qp)
+                          ftype, nals, recon=recon_thunk, avg_qp=qp,
+                          trace=trace)
         self.rc.end_pic(ef.bits, slice_type == SLICE_I)
         self.poc += 1
         self.gop_poc += 1
+        if trace is not None:
+            trace.d2h_bytes = getattr(desc, "d2h_bytes", 0)
+            PROFILER.stamp((src,), "emit")
         return ef
 
     def _drain_queue(self, final: bool = False) -> Iterator:
@@ -558,8 +599,7 @@ class TorchPipeline:
         if len(frames) > 1 and self._intra_device:
             # all-intra batch pipeline: two batches stay in flight
             enc = self._intra()
-            with PROFILER.scope("pack_upload"):
-                self._upload_q.append((enc.pack_upload(frames), frames))
+            self._upload_q.append((enc.pack_upload(frames), frames))
             yield from self._dispatch_upload(enc)
         else:
             # in-order output: finish uploaded + in-flight device batches
@@ -569,7 +609,7 @@ class TorchPipeline:
                 if self.cfg.num_b >= 1:
                     yield from self._encode_gop2(fr)
                 else:
-                    yield from self._encode_one(*fr)
+                    yield from self._encode_one(fr)
         if final:
             yield from self._drain_p_pending()
             if self.cfg.num_b >= 1 and self._held is not None:
@@ -577,7 +617,8 @@ class TorchPipeline:
                 yield from self._trailing_p()
             yield from self._drain_intra_batches()
 
-    def _encode_one(self, y, u, v) -> Iterator:
+    def _encode_one(self, fr) -> Iterator:
+        y, u, v = fr
         intra = self._is_intra_poc(self.poc)
         qp = self.rc.pic_qp(intra)
         # record the source for EVERY frame (including scheduled intras) so
@@ -593,8 +634,8 @@ class TorchPipeline:
             qp = self.rc.pic_qp(True)
         if intra:
             yield from self._drain_p_pending()
-            desc, ry, ru, rv = self._analyze_intra(y, u, v, qp)
-            ef = self._emit(desc, ry, ru, rv, (y, u, v), qp=qp)
+            desc, ry, ru, rv = self._analyze_intra(fr, qp)
+            ef = self._emit(desc, ry, ru, rv, fr, qp=qp)
             # the next P frame predicts from the recon as filtered by SAO (a
             # host recon is uploaded by the P program's dispatch, only when
             # a P frame follows); references never cross an IDR
@@ -606,13 +647,13 @@ class TorchPipeline:
             # reference choice and ref_idx_l0 on the host, once two
             # references exist; the frames before ride the device chain
             yield from self._drain_p_pending()
-            yield from self._mref_frame((y, u, v), qp)
+            yield from self._mref_frame(fr, qp)
             return
         if not self._inter_device:
             # the host P programs, inline (a configuration whose P frames
             # no device program codes)
-            desc, ry, ru, rv = self._inter_frame((y, u, v), qp)
-            yield self._emit(desc, ry, ru, rv, (y, u, v), slice_type=SLICE_P,
+            desc, ry, ru, rv = self._inter_frame(fr, qp)
+            yield self._emit(desc, ry, ru, rv, fr, slice_type=SLICE_P,
                              qp=qp, refs_before=self._p_refs())
             self._ref, self._ref_prev = self._last_recon, None
             return
@@ -634,15 +675,13 @@ class TorchPipeline:
         gpb = ((self.cfg.gpb or self.cfg.num_ref_frames >= 2)
                and ref2 is not None and self.ps.ctu_size == 32)
         qp_map = self._inter_qp_map(y, qp)
-        with PROFILER.scope("dispatch_inter"):
-            if gpb:
-                out = enc.dispatch_b((y, u, v), ref, ref2, self.avg_dist,
-                                     qp=qp)
-            else:
-                out = enc.dispatch((y, u, v), ref, self.avg_dist, qp=qp,
-                                   qp_map=qp_map)
+        PROFILER.stamp((fr,), "dispatch")
+        if gpb:
+            out = enc.dispatch_b(fr, ref, ref2, self.avg_dist, qp=qp)
+        else:
+            out = enc.dispatch(fr, ref, self.avg_dist, qp=qp, qp_map=qp_map)
         self._ref_prev, self._ref = ref, enc.last_dev
-        self._p_pendings.append((out, (y, u, v), qp, gpb, qp_map))
+        self._p_pendings.append((out, fr, qp, gpb, qp_map))
         if len(self._p_pendings) >= (1 if self.ps.cu_qp_delta_enabled
                                      else 2):
             yield from self._drain_p_pending(one=True)
@@ -670,11 +709,10 @@ class TorchPipeline:
         refs = [tuple(np.asarray(pl, np.int32) for pl in r)
                 for r in self._ref_queue[:nref]]
         dists = tuple(range(1, nref + 1))
-        with PROFILER.scope("analyze_inter_mref"):
-            desc, ry, ru, rv = encode_inter_frame(
-                self.ps, src, refs[0], qp, cu_size=16,
-                search=self._inter_search_range(), avg_dist=self.avg_dist,
-                ref_list=refs, ref_dists=dists)
+        desc, ry, ru, rv = self._host(
+            src, "inter.mref", encode_inter_frame, self.ps, src, refs[0], qp,
+            cu_size=16, search=self._inter_search_range(),
+            avg_dist=self.avg_dist, ref_list=refs, ref_dists=dists)
         poc = self.gop_poc
         yield self._emit(desc, ry, ru, rv, src, slice_type=SLICE_P, qp=qp,
                          refs_before=tuple(poc - d for d in dists))
@@ -683,9 +721,10 @@ class TorchPipeline:
     def _drain_p_pending(self, one: bool = False) -> Iterator:
         while self._p_pendings:
             out, src, qp, gpb, qp_map = self._p_pendings.pop(0)
-            with PROFILER.scope("fetch_inter"):
-                desc, ry, ru, rv = self._inter().fetch(
-                    out, bi=gpb, ref_dists=(1, 2), qp_map=qp_map)
+            PROFILER.stamp((src,), "fetch")
+            desc, ry, ru, rv = self._inter().fetch(
+                out, bi=gpb, ref_dists=(1, 2), qp_map=qp_map)
+            PROFILER.stamp((src,), "fetched")
             if gpb:
                 p = self.gop_poc
                 yield self._emit(desc, ry, ru, rv, src, slice_type=SLICE_B,
@@ -707,12 +746,14 @@ class TorchPipeline:
         too, as the JAX package's do."""
         ref = self._last_recon if ref is None else ref
         if not self._inter_device:
-            with PROFILER.scope("analyze_inter_host"):
-                return self._analyze_inter_host(fr, qp, ref, is_b)
+            return self._host(fr, "inter.host", self._analyze_inter_host,
+                              fr, qp, ref, is_b)
         qp_map = None if is_b else self._inter_qp_map(fr[0], qp)
-        with PROFILER.scope("analyze_inter_device"):
-            return self._inter().encode_frame(fr, ref, self.avg_dist, qp=qp,
-                                              is_b=is_b, qp_map=qp_map)
+        enc = self._inter()
+        return self._inline(
+            fr, lambda: enc.dispatch(fr, ref, self.avg_dist, qp=qp,
+                                     qp_map=qp_map),
+            lambda out: enc.fetch(out, is_b=is_b, qp_map=qp_map))
 
     def _analyze_inter_host(self, fr, qp, ref, is_b):
         """The host P programs, as the JAX package's _analyze_inter runs
@@ -767,7 +808,7 @@ class TorchPipeline:
             if self._held is not None:
                 yield from self._trailing_p()    # closed GOP before the IDR
             self._idr_base = t
-            desc, ry, ru, rv = self._analyze_intra(*fr, qp)
+            desc, ry, ru, rv = self._analyze_intra(fr, qp)
             self._anchor_m2 = None
             yield self._emit(desc, ry, ru, rv, fr, qp=qp, display_poc=t)
         else:
@@ -779,10 +820,8 @@ class TorchPipeline:
                 # a generalized-B anchor: list 0 the previous anchor (t-2),
                 # list 1 the one before (t-4); per-CU uni / bi keeps the
                 # quality at the two distances
-                with PROFILER.scope("analyze_anchor_bi"):
-                    desc, ry, ru, rv = self._inter().encode_frame_b(
-                        fr, self._last_recon, prev2, self.avg_dist, qp=qp,
-                        ref_dists=(2, 4))
+                desc, ry, ru, rv = self._bi_frame(
+                    fr, self._last_recon, prev2, qp, ref_dists=(2, 4))
                 self._anchor_m2 = self._last_recon
                 yield self._emit(desc, ry, ru, rv, fr, slice_type=SLICE_B,
                                  qp=qp, poc=poc, display_poc=t,
@@ -804,18 +843,16 @@ class TorchPipeline:
         bpoc = bt - self._idr_base
         qb = min(51, self.rc.pic_qp(False) + self.cfg.b_qp_offset)
         if self._bi_ok() and self._inter_device:
-            with PROFILER.scope("analyze_b_bi"):
-                desc, ry, ru, rv = self._inter().encode_frame_b(
-                    fb, prev_anchor, self._last_recon, self.avg_dist, qp=qb)
+            desc, ry, ru, rv = self._bi_frame(fb, prev_anchor,
+                                              self._last_recon, qb)
         elif self._bi_ok():
             # the host bi B tree (no per-CTB QP map)
-            with PROFILER.scope("analyze_b_bi"):
-                desc, ry, ru, rv = encode_b_frame_tree(
-                    self.ps, fb,
-                    tuple(np.asarray(p, np.int32) for p in prev_anchor),
-                    tuple(np.asarray(p, np.int32) for p in self._last_recon),
-                    qb, search=self._inter_search_range(),
-                    avg_dist=self.avg_dist)
+            desc, ry, ru, rv = self._host(
+                fb, "inter.host", encode_b_frame_tree, self.ps, fb,
+                tuple(np.asarray(p, np.int32) for p in prev_anchor),
+                tuple(np.asarray(p, np.int32) for p in self._last_recon),
+                qb, search=self._inter_search_range(),
+                avg_dist=self.avg_dist)
         else:
             desc, ry, ru, rv = self._inter_frame(fb, qb, ref=prev_anchor,
                                                  is_b=True)
@@ -823,22 +860,30 @@ class TorchPipeline:
                          poc=bpoc, display_poc=bt, refs_before=(bpoc - 1,),
                          refs_after=(bpoc + 1,), is_ref=False)
 
+    def _bi_frame(self, fr, ref0, ref1, qp, ref_dists=(1, -1)):
+        """The frame fr on the device's bi-capable program, against the
+        list-0 reference ref0 and the list-1 reference ref1 at POC
+        distances ref_dists."""
+        enc = self._inter()
+        return self._inline(
+            fr, lambda: enc.dispatch_b(fr, ref0, ref1, self.avg_dist, qp=qp),
+            lambda out: enc.fetch(out, bi=True, ref_dists=ref_dists))
+
     def _dispatch_upload(self, enc) -> Iterator:
         """Dispatch the oldest uploaded batch; serialize the batch whose
         background fetch was started last cycle."""
         handle, frames = self._upload_q.pop(0)
         prev_results = None
         if self._fetch_inflight is not None:
-            with PROFILER.scope("fetch_join"):
-                prev_results = self._fetch_inflight.join()
+            prev_results = self._fetch_inflight.join()
             self._fetch_inflight = None
         qp = self.rc.pic_qp(True)
         maps = ([self._aq_map(fr[0], qp) for fr in frames]
                 if self.ps.cu_qp_delta_enabled else None)
-        with PROFILER.scope("dispatch_intra"):
-            self._pending_q.append(
-                (enc.dispatch_packed(handle, [qp] * len(frames), maps),
-                 frames, qp, maps))
+        PROFILER.stamp(frames, "dispatch")
+        self._pending_q.append(
+            (enc.dispatch_packed(handle, [qp] * len(frames), maps),
+             frames, qp, maps))
         if len(self._pending_q) >= 2:
             out, pframes, pqp, pmaps = self._pending_q.pop(0)
             self._fetch_inflight = _AsyncFetch(enc, out, pframes, pqp,
@@ -859,9 +904,10 @@ class TorchPipeline:
             yield from self._emit_batch(*results)
         while self._pending_q:
             out, pframes, qp, maps = self._pending_q.pop(0)
-            with PROFILER.scope("fetch_intra"):
-                results = self._intra().fetch_frames(out, len(pframes),
-                                                     qp_maps=maps)
+            PROFILER.stamp(pframes, "fetch")
+            results = self._intra().fetch_frames(out, len(pframes),
+                                                 qp_maps=maps)
+            PROFILER.stamp(pframes, "fetched")
             yield from self._emit_batch(results, pframes, qp)
 
     def _scene_change(self, y: np.ndarray) -> bool:
@@ -903,7 +949,12 @@ class TorchPipeline:
         return y, u, v
 
     def push(self, y: np.ndarray, u: np.ndarray, v: np.ndarray) -> Iterator:
-        self._queue.append(self._pad_frame(y, u, v))
+        trace = PROFILER.frame_trace()
+        fr = self._pad_frame(y, u, v)
+        if trace is not None:
+            fr = _Traced(fr)
+            fr.trace = trace
+        self._queue.append(fr)
         if len(self._queue) >= self.batch:
             yield from self._drain_queue()
 

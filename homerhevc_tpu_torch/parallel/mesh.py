@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from homerhevc_tpu_torch.device import resolve_device
+from homerhevc_tpu_torch.utils.profiler import PROFILER
 
 
 def make_mesh(n_devices: int, device="cuda") -> tuple:
@@ -95,6 +96,7 @@ class _Slots:
 
     def _in_slot(self, fn, d):
         stream = self.streams[d]
+        PROFILER.set_role(f"slot{d}")
         with self._turn:
             if stream is None:                   # a CPU slot
                 return fn(d)

@@ -86,7 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="skip the recon download and PSNR (pure encode "
                          "throughput)")
     ap.add_argument("-profile", action="store_true",
-                    help="print the stage profiler report to stderr")
+                    help="trace the timed run's stages and print the "
+                         "profiler report to stderr")
     ap.add_argument("-label", default="rd")
     ap.add_argument("-qps", default=None,
                     help="comma list; run each QP reusing the device "
@@ -166,14 +167,16 @@ def main(argv=None):
             if out is not None:
                 out.write(ef.annex_b())
             if not args.no_metrics:
-                with PROFILER.scope("consume_recon"):
+                with PROFILER.scope("measure_rd.recon"):
                     r = ef.recon
                 s = srcs[ef.poc]
-                with PROFILER.scope("consume_psnr"):
+                with PROFILER.scope("measure_rd.psnr"):
                     ps[:] += [psnr(r["y"], s[0]), psnr(r["u"], s[1]),
                               psnr(r["v"], s[2])]
             nf += 1
 
+        if args.profile:
+            files.enter_context(PROFILER.enabled())
         _sync(dev)
         t0 = time.time()
         for f in srcs:

@@ -46,7 +46,7 @@ def _sources():
 _ENTRY_POINTS = ("cli.py", "hevc/parse.py", "hevc/cabac_dec.py",
                  "hevc/interp.py", "hevc/rd_bits.py", "hevc/inter_frame.py",
                  "tools/measure_rd.py", "tools/prof_device.py",
-                 "tools/bench.py", "hevc/transform.py", "hevc/quantize.py",
+                 "hevc/transform.py", "hevc/quantize.py",
                  "hevc/intra_frame.py", "hevc/intra_tree.py",
                  "hevc/deblock.py")
 

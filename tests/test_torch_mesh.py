@@ -195,6 +195,7 @@ def test_counters_lose_nothing_under_threads(monkeypatch):
     n, reps = 16, 2000
     reset_launches()
     prof = Profiler()
+    prof.enable()
 
     def work():
         for _ in range(reps):

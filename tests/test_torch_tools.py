@@ -3,8 +3,7 @@ tools/measure_rd.py reports the kbps and PSNR of the port's Encoder over
 the same frames; a pipeline that takes the device encoders of one built
 at another QP (as measure_rd's -qps sweep and -warmup hand them on) gives
 a fresh pipeline's bytes, QP up and down; tools/prof_device.py prints one
-JSON line per probe; tools/bench.py prints bench.py's keys and metric
-name."""
+JSON line per probe."""
 
 import json
 
@@ -15,7 +14,7 @@ import torch
 from homerhevc_tpu_torch.api import Encoder
 from homerhevc_tpu_torch.config import EncoderConfig
 from homerhevc_tpu_torch.engine.pipeline import TorchPipeline
-from homerhevc_tpu_torch.tools import bench, measure_rd, prof_device
+from homerhevc_tpu_torch.tools import measure_rd, prof_device
 from homerhevc_tpu_torch.tools.p_frame_ops import bench_clip, write_yuv
 from homerhevc_tpu_torch.utils.metrics import psnr
 
@@ -89,12 +88,3 @@ def test_prof_device_prints_each_probe(capsys):
                                           "intra_tree"]
     assert all(r["ms"] > 0 and r["device"] == "cpu" for r in rows)
 
-
-def test_bench_prints_the_bench_keys(capsys):
-    bench.main(["--device", "cpu", "--size", "64x64", "--frames", "4",
-                "--in-flight", "2"])
-    (row,) = _lines(capsys)
-    assert list(row) == ["metric", "value", "unit", "vs_baseline"]
-    assert row["metric"] == "720p_allintra_encode_fps"
-    assert row["unit"] == "fps" and row["value"] > 0
-    assert abs(row["vs_baseline"] - row["value"] / 3.59) <= 1e-3
