@@ -7,7 +7,10 @@ becomes a Python loop (168 steps at 720p), and vmap over frames becomes a
 leading batch axis. The carry holds only the boundary rows/cols of the last
 three diagonals in the diagonal-slot layout (slot = gy), so every
 neighbour access is a shifted slice. Decisions, levels and recon are
-bit-exact to the JAX encoder and the golden numpy encoder.
+bit-exact to the JAX encoder and the golden numpy encoder. The program
+never synchronises with the host, so on the card it is captured into one
+CUDA graph per batch shape and replayed: thousands of small kernels a
+frame cost one launch a batch (TorchIntraEncoder._launch).
 
 The numpy wire helpers (_split_planes, _parse_cg_wire, _unpack_cg_frame,
 _wire_frame) are copies of the JAX module's: this package imports nothing
@@ -193,13 +196,18 @@ class WireFrameEncoder:
         with PROFILER.scope("intra.dispatch"):
             qp = torch.as_tensor(np.asarray(qps, np.int32),
                                  device=self.device)
-            planes = unpack_frames(handle, self.w, self.h)
             if qp_maps is None:
-                return self._frame_impl(*planes, qp)
+                return self._launch(handle, qp)
             # one upload of the batch's maps; they stay on the device
             maps = torch.as_tensor(np.asarray(qp_maps, np.int32),
                                    device=self.device)
-            return self._frame_impl(*planes, qp, maps)
+            return self._launch(handle, qp, maps)
+
+    def _launch(self, handle, *args):
+        """_frame_impl over the packed batch `handle` and its device inputs
+        (the frame QPs, and the QP maps where given)."""
+        return self._frame_impl(*unpack_frames(handle, self.w, self.h),
+                                *args)
 
     def dispatch_frames(self, ys, us, vs, qps=None, qp_maps=None):
         """Launch the batched frame program; returns device tensors (CUDA
@@ -265,6 +273,43 @@ class WireFrameEncoder:
                                   else [qp_map])[0]
 
 
+class _FrameGraph:
+    """One CUDA graph of a frame program, captured over static copies of
+    its inputs (the packed batch, the frame QPs, the QP maps where given).
+    replay() copies a batch's inputs in, replays the graph and returns
+    copies of its outputs, enqueued on the same stream: every replay
+    writes the graph's own buffers, and a batch's outputs are read after
+    the next batch is dispatched (the pipeline's background fetch,
+    reconstructions kept as DevicePlanes).
+
+    `shared`, an earlier graph of the same encoder, lends this one its
+    memory pool and capture stream: replays run one at a time on the
+    card's current stream and their outputs are copied at once, so one
+    graph's scratch may hold another's outputs."""
+
+    def __init__(self, program, inputs, shared=None):
+        self.device = inputs[0].device
+        self.inputs = [torch.empty_like(t) for t in inputs]
+        self.graph = torch.cuda.CUDAGraph()
+        self.stream = (shared.stream if shared
+                       else torch.cuda.Stream(self.device))
+        # on the inputs' card, whichever card is current (ops on its
+        # tensors go to its own current stream: captured there, or the
+        # graph is empty); thread_local: only this thread's calls are
+        # checked while it captures (the pipeline's fetch thread copies)
+        with torch.cuda.device(self.device), torch.cuda.graph(
+                self.graph, pool=shared.graph.pool() if shared else None,
+                stream=self.stream, capture_error_mode="thread_local"):
+            self.outputs = program(*self.inputs)
+
+    def replay(self, *inputs):
+        with torch.cuda.device(self.device):
+            for dst, src in zip(self.inputs, inputs):
+                dst.copy_(src)
+            self.graph.replay()
+            return tuple(t.clone() for t in self.outputs)
+
+
 def _sh1(a: torch.Tensor) -> torch.Tensor:
     """Shift along the slot axis (dim 1): out[:, s] = a[:, s-1], 0 at s=0."""
     return torch.cat([torch.zeros_like(a[:, :1]), a[:, :-1]], dim=1)
@@ -295,6 +340,8 @@ class TorchIntraEncoder(WireFrameEncoder):
         valid = self.tab["d_valid"].reshape(-1)
         self._flat_valid = flat[valid]             # block index per slot
         self._slot_valid = torch.nonzero(valid).reshape(-1)
+        # by batch shape (_launch): None once dispatched, then its graph
+        self._graphs: dict[tuple[int, int], _FrameGraph | None] = {}
 
     # -- helpers -----------------------------------------------------------
 
@@ -487,6 +534,30 @@ class TorchIntraEncoder(WireFrameEncoder):
         return recon_y, recon_u, recon_v, ly, lu, lv, meta
 
     # -- host glue (WireFrameEncoder) ---------------------------------------
+
+    def _launch(self, handle, *args):
+        """_frame_impl, on the card from one CUDA graph per batch shape (the
+        batch size, and whether QP maps are given). A shape's first
+        dispatch runs eagerly and fills the cached device tables; its
+        second captures the whole program into a graph and replays it;
+        each later one copies its inputs into the graph's and replays. The
+        graphs share one memory pool. On the CPU every dispatch runs
+        eagerly."""
+        key = (handle.shape[0], len(args))
+        on_card = self.device.type == "cuda"
+        if not on_card or key not in self._graphs:
+            PROFILER.count("intra.eager")
+            if on_card:
+                self._graphs[key] = None
+            return super()._launch(handle, *args)
+        if self._graphs[key] is None:
+            PROFILER.count("intra.graph_captures")
+            shared = next((g for g in self._graphs.values() if g), None)
+            self._graphs[key] = _FrameGraph(super()._launch,
+                                            (handle, *args), shared)
+        else:
+            PROFILER.count("intra.graph_replays")
+        return self._graphs[key].replay(handle, *args)
 
     def _meta_prefix(self) -> int:
         return self.gh * self.gw                   # the mode grid

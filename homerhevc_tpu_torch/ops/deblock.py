@@ -97,6 +97,7 @@ def _luma_filter_groups(p, q, beta, tc):
     return op, oq
 
 
+@lru_cache(maxsize=None)
 def _edge_cols(ne: int, step: int, taps: int, device) -> torch.Tensor:
     xs = (np.arange(ne) + 1) * step
     cols = xs[:, None] + np.arange(-taps, taps)[None, :]

@@ -110,7 +110,7 @@ def pack_sparse_cg(planes, capacity: int, cgcap: int):
                        torch.where(svals == 2, 2,
                                    torch.where(svals == -2, 3, 0))) \
         .to(torch.int32)
-    w4 = torch.tensor([1, 4, 16, 64], dtype=torch.int32, device=dev)
+    w4 = 4 ** torch.arange(4, dtype=torch.int32, device=dev)
     codes = (code.reshape(lead + (-1, 4)) * w4).sum(
         dim=-1, dtype=torch.int32).to(torch.uint8)
     E = esc_capacity(n, capacity)

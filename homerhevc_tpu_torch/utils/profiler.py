@@ -28,8 +28,10 @@ None). `enable()` turns on, `disable()` off; while on:
 - `count(name, n)` adds to a counter: `d2h_bytes` (every device->host
   copy the program makes: the wire's meta buffer, the full planes of a
   frame whose wire overflowed, DevicePlane reads), `wire_overflows`,
-  and the frames the device programs were launched for, `intra.frames`
-  and `inter.frames`;
+  the frames the device programs were launched for, `intra.frames`
+  and `inter.frames`, and the path each dispatch of the CU16 intra
+  program took (engine/intra_encoder.TorchIntraEncoder._launch):
+  `intra.eager`, `intra.graph_captures` or `intra.graph_replays`;
 - the pipeline stamps each frame it is pushed (FrameTrace).
 
 Scope names form one dotted hierarchy, a child named under its parent

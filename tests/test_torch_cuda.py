@@ -7,7 +7,8 @@ generalized-B chain, the intra and P programs with per-CTB QP maps, the
 CLI, an IPPP stream whose I frame takes the host programs, a
 three-reference stream whose later frames take the host P programs, an
 IBP stream with per-CTB QP maps, the mesh's slots) and the ops they add
-on the card against the same code on the CPU, the sweep's launch count
+on the card against the same code on the CPU, the intra program's CUDA
+graph replays against its eager dispatches, the sweep's launch count
 under four slot threads,
 and the port's parser on a stream coded on the card. They
 skip here with a reason. This file imports no jax, so on the card's machine it runs
@@ -350,6 +351,125 @@ def test_intra_aq_encoder_on_card_matches_cpu(card):
             assert np.array_equal(getattr(cd, f), getattr(gd, f)), f
         for a, b in zip(crec, grec):
             assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("deblock,maps,current", [
+    (False, False, True), (True, False, True), (False, True, True),
+    (True, False, False)])
+def test_intra_graph_replays_match_eager(card, deblock, maps, current):
+    """The CU16 intra program from its CUDA graph: four dispatches of one
+    batch shape over other frames and QPs (eager, capture, two replays),
+    with deblocking off and on and with QP maps, equal a fresh eager
+    encoder's seven outputs bit for bit, each read after every later
+    dispatch ran (no batch's outputs are the graph's buffers); the
+    counters read eager 1, capture 1, replays 2, and a batch size seen
+    once stays eager. With `current` false the encoders are on the second
+    card while the first is current, as "cuda:1" places them (skipped
+    with one card)."""
+    from homerhevc_tpu_torch.engine.rate_control import aq_qp_map
+    from homerhevc_tpu_torch.utils.profiler import PROFILER
+    w, h = 128, 64
+    rng = np.random.RandomState(19)
+    cfg = EncoderConfig(width=w, height=h, qp=30, gop_size=0, cu_size=16,
+                        sao=False, deblocking=deblock, sign_hiding=True,
+                        aq_strength=2.0 if maps else 0.0)
+    ps = ParamSets.from_config(cfg)
+    batches = []
+    for k, n in enumerate((2, 2, 2, 2, 1)):
+        frames = [_frame(rng, w, h) for _ in range(n)]
+        qps = [28 + k, 35 - k][:n]
+        batches.append((frames, qps, [aq_qp_map(f[0], 16, q, 2.0) for f, q
+                                      in zip(frames, qps)] if maps else None))
+    if not current:
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs a second CUDA card, not the current one")
+        card = torch.device("cuda", 1)
+
+    def dispatch(enc, frames, qps, qp_maps):
+        return enc.dispatch_packed(enc.pack_upload(frames), qps, qp_maps)
+    enc = TorchIntraEncoder(ps, cfg, device=card)
+    try:
+        with PROFILER.enabled(), torch.cuda.device(0):
+            PROFILER.reset()
+            got = [dispatch(enc, *b) for b in batches]
+            counters = PROFILER.counters
+    finally:
+        PROFILER.reset()
+    want = [dispatch(TorchIntraEncoder(ps, cfg, device=card), *b)
+            for b in batches]
+    for g, e in zip(got, want):
+        assert len(g) == len(e) == 7
+        for a, b in zip(g, e):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    for k in range(1, 4):       # the batches differ, so an overwrite shows
+        assert not torch.equal(got[k - 1][0], got[k][0])
+    assert (counters["intra.eager"], counters["intra.graph_captures"],
+            counters["intra.graph_replays"]) == (2, 1, 2)
+    key = 2 if maps else 1
+    assert enc._graphs[(1, key)] is None and enc._graphs[(2, key)]
+
+
+def test_intra_graphs_of_two_batch_sizes_share_a_pool(card):
+    """Two batch sizes dispatched in turns (as full batches and a flush's
+    partial ones): each is captured on its second dispatch into the first
+    graph's memory pool, and all eight dispatches, read after the last,
+    equal a fresh eager encoder's bit for bit."""
+    from homerhevc_tpu_torch.utils.profiler import PROFILER
+    w, h = 128, 64
+    rng = np.random.RandomState(23)
+    cfg = EncoderConfig(width=w, height=h, qp=30, gop_size=0, cu_size=16,
+                        sao=False, deblocking=True, sign_hiding=True)
+    ps = ParamSets.from_config(cfg)
+    batches = [[_frame(rng, w, h) for _ in range(n)]
+               for n in (2, 1, 2, 1, 2, 1, 2, 1)]
+
+    def dispatch(enc, frames):
+        return enc.dispatch_packed(enc.pack_upload(frames),
+                                   [30 + len(frames)] * len(frames))
+    enc = TorchIntraEncoder(ps, cfg, device=card)
+    try:
+        with PROFILER.enabled():
+            PROFILER.reset()
+            got = [dispatch(enc, b) for b in batches]
+            counters = PROFILER.counters
+    finally:
+        PROFILER.reset()
+    want = [dispatch(TorchIntraEncoder(ps, cfg, device=card), b)
+            for b in batches]
+    for g, e in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, e))
+    assert (counters["intra.eager"], counters["intra.graph_captures"],
+            counters["intra.graph_replays"]) == (2, 2, 4)
+    assert enc._graphs[(1, 1)].graph.pool() == enc._graphs[(2, 1)].graph.pool()
+
+
+@pytest.mark.parametrize("gop", [0, 1])
+def test_graph_replayed_streams_on_card_match_cpu(card, gop):
+    """Streams whose I frames reach the intra program's CUDA graph through
+    the pipeline (128x64, 8 frames, deblocking): all-intra in batches of 2
+    (eager, capture, two replays; the background fetch reads each batch
+    after the next one replayed) and IPPP with an IDR every 2 frames
+    (batches of 1); the stream and recon equal the CPU path's byte for
+    byte."""
+    from homerhevc_tpu_torch.tools.p_frame_ops import bench_clip
+    from homerhevc_tpu_torch.utils.profiler import PROFILER
+    cfg = EncoderConfig(width=128, height=64, qp=32, cu_size=16,
+                        gop_size=gop, intra_period=2 if gop else 0,
+                        num_frames_in_flight=2, deblocking=True, sao=False,
+                        sign_hiding=True, reinit_gop_on_scene_change=False)
+    try:
+        with PROFILER.enabled():
+            PROFILER.reset()
+            out, types, _ = _card_and_cpu_streams(cfg,
+                                                  bench_clip(128, 64, 8, 43))
+            counters = PROFILER.counters
+    finally:
+        PROFILER.reset()
+    assert types.count("I") == (8 if gop == 0 else 4)
+    # the CPU's four dispatches and the card's first are eager
+    assert (counters["intra.eager"], counters["intra.graph_captures"],
+            counters["intra.graph_replays"]) == (5, 1, 2)
+    assert out["cuda"] == out["cpu"]
 
 
 @pytest.mark.parametrize("cu", [16, 64])
