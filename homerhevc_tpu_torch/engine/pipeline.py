@@ -95,6 +95,10 @@ from homerhevc_tpu_torch.hevc.sao import sao_apply_component, sao_decide
 from homerhevc_tpu_torch.hevc.syntax import SliceDataEncoder
 from homerhevc_tpu_torch.utils.profiler import PROFILER
 
+# the scene-change detector's least deviation, a share of its MAD level
+# (TorchPipeline._scene_change)
+SCENE_DEV_FLOOR = 0.05
+
 
 def _mref(desc, refs_before, poc):
     """(num_ref_l0, ref_dists_l0) for a multi-reference slice, or (1, None)
@@ -623,7 +627,10 @@ class TorchPipeline:
         qp = self.rc.pic_qp(intra)
         # record the source for EVERY frame (including scheduled intras) so
         # the MAD stays a one-frame delta
-        scene_cut = self._scene_change(y)
+        with PROFILER.scope("scene.detect"):
+            scene_cut = self._scene_change(y)
+        if scene_cut:
+            PROFILER.count("scene.cuts")
         if (not intra and self.cfg.reinit_gop_on_scene_change
                 and scene_cut):
             # scene change -> RC pivot + GOP reinit (hmr_motion_inter.c:3791;
@@ -911,11 +918,26 @@ class TorchPipeline:
             yield from self._emit_batch(results, pframes, qp)
 
     def _scene_change(self, y: np.ndarray) -> bool:
-        """Scene-change detector: mean absolute difference between
+        """Scene-change detector: mean absolute difference (MAD) between
         consecutive SOURCE lumas against an adaptive threshold (running
         MAD level and its deviation), so fast pans on noisy content do not
         cut while hard transitions on static content do. Source frames keep
-        the detector independent of the device-resident reference chain."""
+        the detector independent of the device-resident reference chain.
+
+        Two departures from the JAX package's detector, whose level
+        freezes at its first cut, so that a clip whose MAD then stays a
+        little above the frozen threshold cuts on every frame:
+
+        - a declared cut drops the level, and the next delta re-seeds it
+          as the first delta of the stream does: the level follows the
+          new scene;
+        - the threshold keeps the deviation at SCENE_DEV_FLOOR of the
+          level or more, so it is at least 1.25x the level. On a steady
+          noisy clip the deviation decays to well under 1 % of the level
+          (hevcbench/clip.py at 720p: a MAD of 20.1 that moves by about
+          0.1), and a small object jumping across the picture raises the
+          MAD by 6-9 % (its 160x120 box wrapping: 21.3-22.0), which then
+          is no cut; a hard cut raises it many times over."""
         prev = getattr(self, "_last_src_y", None)
         self._last_src_y = np.asarray(y, np.int16)
         if prev is None:
@@ -924,17 +946,18 @@ class TorchPipeline:
                                    - prev)))
         ema = getattr(self, "_mad_ema", None)
         if ema is None:
-            # first delta seeds the running level; a cut on frame 1 is
-            # still caught by the absolute floor below
+            # the first delta of the stream or after a cut seeds the
+            # running level; a cut there is still caught by the absolute
+            # floor below
             self._mad_ema, self._mad_dev = mad, max(2.0, mad * 0.25)
             return mad > 30.0
-        dev = self._mad_dev
-        thresh = max(12.0, ema + 5.0 * dev)
-        cut = mad > thresh
-        if not cut:
-            self._mad_ema = 0.8 * ema + 0.2 * mad
-            self._mad_dev = 0.8 * dev + 0.2 * abs(mad - self._mad_ema)
-        return cut
+        dev = max(self._mad_dev, SCENE_DEV_FLOOR * ema)
+        if mad > max(12.0, ema + 5.0 * dev):
+            self._mad_ema = None
+            return True
+        self._mad_ema = ema = 0.8 * ema + 0.2 * mad
+        self._mad_dev = 0.8 * self._mad_dev + 0.2 * abs(mad - ema)
+        return False
 
     def _pad_frame(self, y, u, v):
         dh = self.cfg.height - np.asarray(y).shape[0]

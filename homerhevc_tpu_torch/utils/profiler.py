@@ -31,7 +31,9 @@ None). `enable()` turns on, `disable()` off; while on:
   the frames the device programs were launched for, `intra.frames`
   and `inter.frames`, and the path each dispatch of the CU16 intra
   program took (engine/intra_encoder.TorchIntraEncoder._launch):
-  `intra.eager`, `intra.graph_captures` or `intra.graph_replays`;
+  `intra.eager`, `intra.graph_captures` or `intra.graph_replays`; and
+  `scene.cuts`, the cuts the pipeline's scene-change detector declares
+  (its span is `scene.detect`), whether or not a GOP reinit acts on them;
 - the pipeline stamps each frame it is pushed (FrameTrace).
 
 Scope names form one dotted hierarchy, a child named under its parent

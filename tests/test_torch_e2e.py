@@ -6,6 +6,7 @@ the port runs without jax and without the JAX package."""
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -192,6 +193,45 @@ def test_torch_idr_and_scene_cut_match_jax(jax_programs):
     want = _encode(_jax_encoder(kw, jax_programs), frames)
     got = _encode(TorchEncoder(EncoderConfig(**kw), device="cpu"), frames)
     assert [e.frame_type for e in got] == ["I", "P", "I", "I"]
+    assert [e.frame_type for e in want] == [e.frame_type for e in got]
+    assert b"".join(e.annex_b() for e in got) == \
+        b"".join(e.annex_b() for e in want)
+
+
+def _fade_frames(w, h, n, step, gain=1.2, seed=16):
+    """A noisy texture rolling 4 px a frame whose contrast steps up by
+    `gain` from frame `step` on: a fade, no cut."""
+    rng = np.random.RandomState(seed)
+    tex = rng.randint(-30, 30, (h, 2 * w))
+    c = np.full((h // 2, w // 2), 128, np.uint8)
+    out = []
+    for t in range(n):
+        y = 90 + tex[:, 4 * t % w:][:, :w] * (gain if t >= step else 1.0) \
+            + rng.normal(0, 2, (h, w))
+        out.append((np.clip(y, 0, 255).astype(np.uint8), c, c))
+    return out
+
+
+def test_reinit_stream_with_the_port_detector_matches_jax(jax_programs,
+                                                          monkeypatch):
+    """With reinit on, a contrast step at frame 14: the JAX detector
+    freezes its level there and cuts on every frame from it, while the
+    port's declares no cut. Given the port's detector for the run
+    (torch_golden.port_scene_change), the JAX Encoder gives the port's
+    frame types and Annex-B bytes."""
+    from homerhevc_tpu.engine.pipeline import EncoderPipeline
+    from tests.torch_golden import port_scene_change
+    w, h = 128, 64
+    kw = dict(width=w, height=h, cu_size=16, gop_size=1, qp=32,
+              intra_period=0, sign_hiding=True, deblocking=True, sao=False)
+    frames = _fade_frames(w, h, 17, 14)
+    state = types.SimpleNamespace()
+    assert [t for t, (y, _, _) in enumerate(frames)
+            if EncoderPipeline._scene_change(state, y)] == [14, 15, 16]
+    got = _encode(TorchEncoder(EncoderConfig(**kw), device="cpu"), frames)
+    assert [e.frame_type for e in got] == ["I"] + ["P"] * 16
+    port_scene_change(monkeypatch)
+    want = _encode(_jax_encoder(kw, jax_programs), frames)
     assert [e.frame_type for e in want] == [e.frame_type for e in got]
     assert b"".join(e.annex_b() for e in got) == \
         b"".join(e.annex_b() for e in want)

@@ -230,3 +230,21 @@ def test_a_wire_overflow_counts_the_fallback_planes():
     for (d0, *_), (d1, *_) in zip(out_def, out_tiny):
         assert d1.cg_wire is None
         assert np.array_equal(d0.densify().coef_y, d1.coef_y)
+
+
+def test_the_scene_detector_is_traced_and_reported():
+    """The pipeline's scene-change detector runs inside `scene.detect` on
+    every IPPP frame, and `scene.cuts` counts the cuts it declares: a hard
+    cut into frame 2 and back out of it at frame 3, each an IDR with
+    reinit on."""
+    frames = _frames(4)
+    y, u, v = frames[2]
+    frames[2] = (255 - y, u, v)
+    with PROFILER.enabled():
+        efs = _encode(CONFIGS["ippp"], frames)
+    assert [ef.frame_type for ef in efs] == ["I", "P", "I", "I"]
+    assert PROFILER.stats()[("main", "scene.detect")].calls == 4
+    assert PROFILER.counters["scene.cuts"] == 2
+    lines = PROFILER.report().splitlines()
+    assert any(ln.startswith("main scene.detect: ") for ln in lines)
+    assert "scene.cuts: 2" in lines

@@ -107,6 +107,19 @@ def spec_amvp_mref(monkeypatch):
                         lambda *a, **k: None)
 
 
+def port_scene_change(monkeypatch):
+    """Give the JAX package's pipeline the port's scene-change detector
+    (TorchPipeline._scene_change): its level re-seeded after a cut and its
+    threshold at least 1.25x the level. The JAX detector freezes its level
+    at its first cut, so a clip whose MAD then stays a little higher cuts
+    on every frame, each an IDR with reinit on (ROADMAP Queue 3);
+    everything else of the reference stays as it is."""
+    from homerhevc_tpu.engine.pipeline import EncoderPipeline
+    from homerhevc_tpu_torch.engine.pipeline import TorchPipeline
+    monkeypatch.setattr(EncoderPipeline, "_scene_change",
+                        TorchPipeline._scene_change)
+
+
 def spec_mref_rps(monkeypatch):
     """Give the JAX package's IPPP P slices with num_ref_frames > 2 the
     reference picture set the port writes: every picture of the
