@@ -1,4 +1,5 @@
-"""Device resolution, numeric pins and kernel launch counters.
+"""Device resolution, numeric pins, kernel launch counters and the CUDA
+graph of a frame program.
 
 The port's entry points run on the card unless the caller asks for the
 CPU: there is no "cuda if present, else cpu" fallback, and asking for
@@ -9,6 +10,7 @@ both cuBLAS matmuls and cuDNN: the intra predictor's float32 contraction
 
 from __future__ import annotations
 
+import gc
 import threading
 
 import torch
@@ -52,3 +54,52 @@ def resolve_device(device) -> torch.device:
     elif d.type != "cpu":
         raise ValueError(f"unsupported device {d}")
     return d
+
+
+class FrameGraph:
+    """One CUDA graph of a frame program, captured over static copies of
+    its inputs (the intra program's packed batch, frame QPs and QP maps
+    where given; a part of an inter program, engine/inter_encoder).
+    replay() copies a batch's inputs in, replays the graph and returns
+    copies of its outputs, enqueued on the same stream: every replay
+    writes the graph's own buffers, and a batch's outputs are read after
+    the next batch is dispatched (the pipeline's background fetch,
+    reconstructions kept as DevicePlanes).
+
+    `shared`, an earlier graph of the same encoder, lends this one its
+    memory pool and capture stream: replays run one at a time on the
+    card's current stream and their outputs are copied at once, so one
+    graph's scratch may hold another's outputs.
+
+    The garbage collector is held off while the graph captures: a dead
+    reference cycle that holds another graph (a dropped encoder's), were
+    it collected then, would free that graph with calls a capture
+    refuses, and the capture would fail."""
+
+    def __init__(self, program, inputs, shared=None):
+        self.device = inputs[0].device
+        self.inputs = [torch.empty_like(t) for t in inputs]
+        self.graph = torch.cuda.CUDAGraph()
+        self.stream = (shared.stream if shared
+                       else torch.cuda.Stream(self.device))
+        # on the inputs' card, whichever card is current (ops on its
+        # tensors go to its own current stream: captured there, or the
+        # graph is empty); thread_local: only this thread's calls are
+        # checked while it captures (the pipeline's fetch thread copies)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(self.device), torch.cuda.graph(
+                    self.graph, pool=shared.graph.pool() if shared else None,
+                    stream=self.stream, capture_error_mode="thread_local"):
+                self.outputs = program(*self.inputs)
+        finally:
+            if collecting:
+                gc.enable()
+
+    def replay(self, *inputs):
+        with torch.cuda.device(self.device):
+            for dst, src in zip(self.inputs, inputs):
+                dst.copy_(src)
+            self.graph.replay()
+            return tuple(t.clone() for t in self.outputs)

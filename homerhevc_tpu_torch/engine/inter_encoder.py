@@ -17,9 +17,17 @@ picks uni-L0, uni-L1 or the 14-bit bi average per CU at CU16 and CU32.
 Bit-exact to the JAX programs and to golden encode_inter_frame
 (merge_rd="fast") / encode_inter_frame_tree / encode_b_frame_tree.
 
-The coarse sweep runs the hand-written CUDA kernel on a CUDA device
+Both programs are generators split at their coarse sweeps (one in _impl,
+three in _impl_b): each sweep's two planes are yielded and its SADs sent
+back, so the sweep is launched by the program's driver (_sweep) and never
+inside the program. On the CPU the driver runs the program eagerly with
+the plain sweep. On the card the sweep is the hand-written CUDA kernel
 (ops/me_sad.py: the 8-bit entry point for source planes, the wide one for
-the bi target); there is no gate at the call site.
+the bi target), and the program is replayed from CUDA graphs, one for
+each part between two sweeps, per key (TorchInterEncoder._launch): the
+~13.5 k small kernels of a 720p P frame cost two graph launches, while
+every sweep stays one eager launch of the kernel through this module's
+coarse_sweep_sads, counted by device.count_launch.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from homerhevc_tpu_torch.hevc.inter_syntax import (
     select_inter_syntax_tree, zf_multiplier)
 from homerhevc_tpu_torch.hevc.syntax import MODE_INTER, MODE_INTRA, FrameDesc
 from homerhevc_tpu_torch.utils.profiler import PROFILER
-from homerhevc_tpu_torch.device import resolve_device
+from homerhevc_tpu_torch.device import FrameGraph, resolve_device
 from homerhevc_tpu_torch.engine.intra_encoder import (DevicePlane, _sh1,
                                                       _u8, _parse_cg_wire,
                                                       _unpack_cg_frame,
@@ -47,7 +55,7 @@ from homerhevc_tpu_torch.ops.deblock import deblock_chroma_bs, deblock_luma_bs
 from homerhevc_tpu_torch.ops.interp import (LUMA_TAPS, extract_patches,
                                             mc_chroma_batch,
                                             mc_chroma_batch_14)
-from homerhevc_tpu_torch.ops.me_sad import coarse_sweep_sads
+from homerhevc_tpu_torch.ops.me_sad import coarse_sweep_sads, sads_like
 from homerhevc_tpu_torch.ops.pack import (cg_cap, esc_capacity,
                                           pack_capacity, pack_sparse_cg)
 from homerhevc_tpu_torch.ops.quant import (dequantize, quantize,
@@ -103,13 +111,12 @@ def _top_k_votes(cost: torch.Tensor, k: int) -> torch.Tensor:
     +=)."""
     cc = cost.clone()
     dev = cc.device
-    cols = torch.arange(cc.shape[1], device=dev)
     hist = torch.zeros(cc.shape[0], dtype=torch.int32, device=dev)
     ones = torch.ones(cc.shape[1], dtype=torch.int32, device=dev)
     for _ in range(k):
         kb = cc.argmin(dim=0)
         hist.index_add_(0, kb, ones)
-        cc[kb, cols] = 1 << 30
+        cc.scatter_(0, kb[None], 1 << 30)       # each block's kb row
     return hist
 
 
@@ -149,6 +156,16 @@ def _recon(pred, lvl, rres):
     nz = (lvl != 0).any(dim=-1).any(dim=-1)
     return torch.where(nz[:, None, None], torch.clamp(pred + rres, 0, 255),
                        pred)
+
+
+# the intra-in-P fallback's MPM modes: independence => every intra CU's
+# neighbours are inter, so the decoder-side MPM list is the constant
+# mpm_candidates(DC, DC)
+_IN_MPM = np.isin(np.arange(35), (0, 1, 26))
+
+# the most CUDA graphs (keys) an inter encoder keeps live; a key past them
+# runs eagerly
+MAX_GRAPHS = 4
 
 
 def select_intra_independent(want: torch.Tensor) -> torch.Tensor:
@@ -191,6 +208,15 @@ class TorchInterEncoder:
         # neighbourhoods +-(far+6)
         self.far = cfg.me_range if cfg.me_range > max(32, 2 * search) else 0
         self.reach = max(2 * search + 2, self.far + 8)
+        if self.far:
+            # the FAR level's (qx, qy) grid and which of it votes
+            grid, vote_mask = far_grid(search, self.far)
+            self.far_grid = (
+                torch.as_tensor([q[0] for q in grid], dtype=torch.int32,
+                                device=self.device),
+                torch.as_tensor([q[1] for q in grid], dtype=torch.int32,
+                                device=self.device),
+                torch.as_tensor(vote_mask, device=self.device))
         self.gw, self.gh = self.w // cu, self.h // cu
         # the CU tree: CU32 over CU16 at CTU 32 and 64; CTU 64 adds the
         # CU64 layer (luma as four forced-split TU32s) unless UFAST
@@ -228,7 +254,24 @@ class TorchInterEncoder:
             self.if_mask_c = torch.as_tensor(dip.avail_masks(
                 self.w, self.h, ps.ctu_size, 8, 1, gxs[None, :] * 8,
                 gys[:, None] * 8), device=self.device)
+            # the fallback's mode rates: of its RD cost (float32), and of
+            # its mode search at each slice QP (52, 35)
+            self.if_mode_bits = torch.as_tensor(
+                np.where(_IN_MPM, INTRA_P_MODE_BITS_MPM,
+                         INTRA_P_MODE_BITS_REM).astype(np.float32),
+                device=self.device)
+            bits = np.asarray([T.intra_mode_bits(q) for q in range(52)],
+                              np.int32)
+            self.if_mode_sad_bits = torch.as_tensor(
+                np.where(_IN_MPM, bits[:, :1], bits[:, 1:]),
+                device=self.device)
+        # the SAO lambda x 256 at each slice QP
+        self.sao_lam = sao_lambda_x256(torch.arange(52)).to(self.device)
         self._aranges = {}
+        # by key (_launch): the keys dispatched once, and the graphs of
+        # those dispatched again while fewer than MAX_GRAPHS were live
+        self._seen: set[tuple] = set()
+        self._graphs: dict[tuple, _SweepSplitGraph] = {}
         self.last_dev = None
 
     def _bits(self, v: torch.Tensor) -> torch.Tensor:
@@ -245,9 +288,11 @@ class TorchInterEncoder:
         (golden twin: hier_pel_fields). sy is the source plane: uint8, or
         int16 where its values may leave [0, 255] (the B program's bi
         target 2 * src - pred, in [-255, 510]); ry the int32 reference.
-        Returns (mvs (B, 2) qpel, prior, mv32 (B2, 2) qpel, prior2,
-        mv64 (B4, 2) qpel, prior4); the tree levels are None when the
-        program has no tree / no CU64 layer."""
+        A generator: it yields the coarse sweep's (decimated source,
+        padded decimated reference) and takes their SADs back (_eager
+        drives it alone). Returns (mvs (B, 2) qpel, prior, mv32 (B2, 2)
+        qpel, prior2, mv64 (B4, 2) qpel, prior4); the tree levels are
+        None when the program has no tree / no CU64 layer."""
         cu = self.cu
         gw, gh = self.gw, self.gh
         R = self.search
@@ -263,8 +308,9 @@ class TorchInterEncoder:
         sd = _decim(sy.to(torch.int32)).to(sy.dtype).contiguous()
         rd = _decim(ry)
         pad_c = pad_edge(rd.to(torch.uint8), R, R).contiguous()
-        # coarse sweep: the hand-written kernel on CUDA (plain on CPU)
-        sads = coarse_sweep_sads(sd, pad_c, R, m)
+        # coarse sweep: launched by the driver (_sweep), outside the
+        # program and its graphs
+        sads = yield sd, pad_c
         n_off = side * side
         ks = torch.arange(n_off, dtype=torch.int32, device=dev)
 
@@ -385,7 +431,8 @@ class TorchInterEncoder:
         centres."""
         dev = self.device
         GQ = 4
-        grid, vote_mask = far_grid(self.search, self.far)
+        qxs, qys, vote_mask = self.far_grid
+        n_grid = qxs.shape[0]
         xq, yq = self.far // 4, min(self.far // 4, 16)
         sd4 = _decim(sd.to(torch.int32))
         rd4 = _decim(rd)
@@ -404,16 +451,12 @@ class TorchInterEncoder:
             sq_rows.append(d.reshape(gh4x, m4, 2 * xq + 1, gw4x, m4)
                            .sum(dim=(1, 4), dtype=torch.int32)
                            .permute(1, 0, 2))           # (nqx, gh4x, gw4x)
-        sads_q = torch.cat(sq_rows)                     # (len(grid), ...)
-        qxs = torch.as_tensor([q[0] for q in grid], dtype=torch.int32,
-                              device=dev)
-        qys = torch.as_tensor([q[1] for q in grid], dtype=torch.int32,
-                              device=dev)
+        sads_q = torch.cat(sq_rows)                     # (n_grid, ...)
         rate_q = self._mv_rate(16 * qxs, 16 * qys, prior)
         cost_q = 16 * sads_q + ((lam16 * rate_q) >> 4)[:, None, None]
         # the offsets the 2x sweep covers never vote
-        cq = torch.where(torch.as_tensor(vote_mask, device=dev)[:, None],
-                         cost_q.reshape(len(grid), -1), 1 << 30)
+        cq = torch.where(vote_mask[:, None], cost_q.reshape(n_grid, -1),
+                         1 << 30)
         hist_q = _top_k_votes(cq, K)
         # 2x-level +-2 refine of each candidate by GLOBAL decimated SAD;
         # the bands start at py2 + 2qy + oy >= 0 and end inside the plane
@@ -425,7 +468,8 @@ class TorchInterEncoder:
         ar_w = torch.arange(w2c + 4, device=dev)
         centers = []
         for kq in _take_top(hist_q, GQ):
-            qx, qy = qxs[kq], qys[kq]
+            # take: a device-valued index that never waits for the card
+            qx, qy = torch.take(qxs, kq), torch.take(qys, kq)
             cols_b = px2 + 2 * qx - 2 + ar_w
             gsum = []
             for oy in (-2, -1, 0, 1, 2):
@@ -468,7 +512,8 @@ class TorchInterEncoder:
         """One P frame. qp_map: None, or the per-CTB QP map (rows, cols)
         int32 on the device (AQ / row-RC): the quant of every level reads
         per-block QP vectors; the lambdas and the zero-forcing stay at the
-        slice QP; merge-RD and intra-in-P are skipped."""
+        slice QP; merge-RD and intra-in-P are skipped. A generator over
+        its one coarse sweep (_hier_me); returns the wire's outputs."""
         cu, cuc = self.cu, self.cu // 2
         gw, gh = self.gw, self.gh
         dev = self.device
@@ -485,8 +530,8 @@ class TorchInterEncoder:
         else:
             (qp16, qpc16), (qp32, qpc32), (qp64, qpc64) = \
                 self._qp_vectors(qp_map)
-        mvs, prior, mv32, prior2, mv64, prior4 = self._hier_me(src_y, ry,
-                                                               lam16)
+        mvs, prior, mv32, prior2, mv64, prior4 = \
+            yield from self._hier_me(src_y, ry, lam16)
 
         # ---- sub-pel refinement (half then quarter) over one (n+8)^2
         # patch per block, all 16 quarter-pel phases interpolated ----
@@ -775,7 +820,8 @@ class TorchInterEncoder:
         """The bi-capable frame (a B frame of IBP, or a generalized-B "P"
         frame) of the CU32/CU16 tree, with a per-CU choice of uni-L0,
         uni-L1 or bi by SSD + lambda * rate: the twin of the JAX
-        _impl_b and of golden encode_b_frame_tree. The uni-L1 candidate
+        _impl_b and of golden encode_b_frame_tree; a generator over its
+        three coarse sweeps (_hier_me). The uni-L1 candidate
         searches the source, the bi list-1 field the bi target
         2 * src - pred0 (a wide plane, in [-255, 510]); list 0 is then
         re-refined against 2 * src - pred1. Bi predicts by the normative
@@ -799,9 +845,11 @@ class TorchInterEncoder:
         padL = self.reach + 8
         padC = self.reach // 2 + 4
 
-        mvs0, pr0, mv32_0, pr2_0, _, _ = self._hier_me(src_y, ry0, lam16)
+        mvs0, pr0, mv32_0, pr2_0, _, _ = \
+            yield from self._hier_me(src_y, ry0, lam16)
         # the uni-L1 candidate's motion field, matched to the source
-        mvs1s, pr1s, mv32_1s, pr2_1s, _, _ = self._hier_me(src_y, ry1, lam16)
+        mvs1s, pr1s, mv32_1s, pr2_1s, _, _ = \
+            yield from self._hier_me(src_y, ry1, lam16)
 
         bidx = torch.arange(B, device=dev, dtype=torch.int32)
         x0s = (bidx % gw) * cu
@@ -918,7 +966,7 @@ class TorchInterEncoder:
         mvs0, p14, pu8 = refine_and_pred(ref_padL0, mvs0, pr0, src_blk, x0s,
                                          y0s, cu)
         tgt_plane = 2 * sy - _unblock(pu8, cu, self.h, self.w)
-        mvs1, pr1, mv32_1, pr2_1, _, _ = self._hier_me(
+        mvs1, pr1, mv32_1, pr2_1, _, _ = yield from self._hier_me(
             tgt_plane.to(torch.int16), ry1, lam16)
         L16 = level((mvs0, pr0, p14, pu8), (mvs1, pr1),
                     _blocks(tgt_plane, cu), (mvs1s, pr1s), src_blk, x0s, y0s,
@@ -1128,16 +1176,8 @@ class TorchInterEncoder:
         hc, wc = self.h // 2, self.w // 2
         sl = self.ps.scaling_list_enabled
         sbh = self.ps.sign_hiding
-        bits_mpm, bits_rem = T.intra_mode_bits(qp)
-        # independence => every intra CU's neighbours are inter, so the
-        # decoder-side MPM list is the constant mpm_candidates(DC, DC)
-        in_mpm = np.isin(np.arange(35), (0, 1, 26))
-        mode_sad_bits = torch.as_tensor(
-            np.where(in_mpm, bits_mpm, bits_rem).astype(np.int32),
-            device=dev)
-        mb_f = torch.as_tensor(
-            np.where(in_mpm, INTRA_P_MODE_BITS_MPM, INTRA_P_MODE_BITS_REM)
-            .astype(np.float32), device=dev)
+        mode_sad_bits = self.if_mode_sad_bits[qp]
+        mb_f = self.if_mode_bits
         mask65 = self.if_mask.reshape(B, 65)
         mask33 = self.if_mask_c.reshape(B, 33)
         src16 = _blocks(sy, 16)
@@ -1250,7 +1290,7 @@ class TorchInterEncoder:
         and the packed params for the wire meta."""
         ry_f, ru_f, rv_f, params = sao_analyze_apply(
             sy, su, sv, recon_y.to(torch.int32), recon_u.to(torch.int32),
-            recon_v.to(torch.int32), self.ps.ctu_size, sao_lambda_x256(qp))
+            recon_v.to(torch.int32), self.ps.ctu_size, self.sao_lam[qp])
         return ry_f, ru_f, rv_f, pack_params(params)
 
     def _wire(self, recon_y, recon_u, recon_v, sy, extra, ly, lu, lv):
@@ -1298,14 +1338,13 @@ class TorchInterEncoder:
         next frame. qp_map: a per-CTB QP map (numpy, rows x cols),
         uploaded once; deblocking must be off with one (the decoder-view
         QP the deblocking filter reads needs the host's inference)."""
-        kw = {}
         if qp_map is not None:
             if self.ps.deblocking_enabled:
                 raise ValueError("per-CTB QP maps need deblocking off (the "
                                  "decoder-view QP)")
-            kw["qp_map"] = torch.as_tensor(np.asarray(qp_map, np.int32),
-                                           device=self.device)
-        return self._run(self._impl, (*src, *ref), avg_dist, qp, **kw)
+            qp_map = torch.as_tensor(np.asarray(qp_map, np.int32),
+                                     device=self.device)
+        return self._run(self._impl, (*src, *ref), avg_dist, qp, qp_map)
 
     def dispatch_b(self, src, ref0, ref1, avg_dist: float = 1000.0,
                    qp=None):
@@ -1313,16 +1352,66 @@ class TorchInterEncoder:
         reference ref0 and the list-1 reference ref1."""
         return self._run(self._impl_b, (*src, *ref0, *ref1), avg_dist, qp)
 
-    def _run(self, impl, planes, avg_dist: float, qp, **kw):
+    def _run(self, impl, planes, avg_dist: float, qp, qp_map=None):
         PROFILER.count("inter.frames")
         with PROFILER.scope("inter.dispatch"):
             qp = self.cfg.qp if qp is None else int(qp)
             zf = torch.tensor(zf_multiplier(avg_dist, qp),
                               dtype=torch.float32, device=self.device)
             planes = [as_device_plane(a, self.device) for a in planes]
-            out = impl(*planes, zf, qp, **kw)
+            out = self._launch(impl, [*planes, zf], qp,
+                               [] if qp_map is None else [qp_map])
         self.last_dev = (out[0], out[1], out[2])
         return out
+
+    def _launch(self, impl, inputs, qp: int, maps):
+        """The program impl over its device inputs (the planes and the
+        zero-forcing multiplier) at the slice QP qp, with the QP map in
+        maps where one is given. On the card a key, (program, QP, QP map
+        given), runs eagerly at its first dispatch, which fills the
+        encoder's caches; its second captures the program into CUDA graphs
+        split at the sweeps (_SweepSplitGraph) while fewer than
+        MAX_GRAPHS are live, else it stays eager; each later one copies
+        its inputs in and replays. The graphs share one memory pool. On
+        the CPU every dispatch runs eagerly."""
+        n = len(inputs)
+
+        def program(*ins):
+            return impl(*ins[:n], qp, *ins[n:])
+        inputs = [*inputs, *maps]
+        key = (impl.__name__, qp, bool(maps))
+        graph = self._graphs.get(key)
+        if graph is not None:
+            PROFILER.count("inter.graph_replays")
+            return graph.replay(*inputs)
+        if (self.device.type != "cuda" or key not in self._seen
+                or len(self._graphs) >= MAX_GRAPHS):
+            PROFILER.count("inter.eager")
+            self._seen.add(key)
+            return self._eager(program(*inputs))
+        PROFILER.count("inter.graph_captures")
+        shared = next(iter(self._graphs.values()), None)
+        graph = self._graphs[key] = _SweepSplitGraph(
+            program, inputs, self._sweep, self.search, self.cu // 2,
+            shared and shared.parts[0])
+        return graph.replay(*inputs)
+
+    def _sweep(self, sd, pad_c):
+        """The coarse sweep a program asks for: this module's
+        coarse_sweep_sads, looked up at each call (on the card the
+        kernel, one launch counted; on the CPU the plain version)."""
+        return coarse_sweep_sads(sd, pad_c, self.search, self.cu // 2)
+
+    def _eager(self, steps):
+        """Run a program's steps (the generator of _impl, _impl_b or
+        _hier_me) eagerly: each sweep it asks for is computed by _sweep
+        and sent back. Returns what the program returns."""
+        try:
+            request = next(steps)
+            while True:
+                request = steps.send(self._sweep(*request))
+        except StopIteration as done:
+            return done.value
 
     def fetch(self, out, is_b: bool = False, bi: bool = False,
               ref_dists=(1, 2), qp_map=None):
@@ -1477,6 +1566,51 @@ class TorchInterEncoder:
         default)."""
         return self.fetch(self.dispatch_b(src, ref0, ref1, avg_dist, qp=qp),
                           bi=True, ref_dists=ref_dists)
+
+
+class _SweepSplitGraph:
+    """An inter program on the card as CUDA graphs split at its coarse
+    sweeps: the first FrameGraph runs from the program's inputs to its
+    first sweep's planes, each next one from a sweep's SADs to the next
+    sweep's planes or to the program's outputs. replay() replays them in
+    turn and launches every sweep between them eagerly through `sweep`
+    (TorchInterEncoder._sweep, at radius R over m x m blocks), so each
+    sweep stays one launch of the kernel, counted and seen by a wrapper
+    of coarse_sweep_sads.
+
+    Capture runs the program's generator once, one part per graph: a
+    tensor made in one part and read in a later one is a buffer of the
+    shared pool, written and read in the order of the capture at every
+    replay. `shared`, a part of an earlier graph of the same encoder,
+    lends every part its memory pool and capture stream."""
+
+    def __init__(self, program, inputs, sweep, R: int, m: int,
+                 shared=None):
+        steps, done = None, []
+
+        def first(*ins):
+            nonlocal steps
+            steps = program(*ins)
+            return next(steps)
+
+        def then(sads):
+            try:
+                return steps.send(sads)
+            except StopIteration as stop:
+                done.append(True)
+                return stop.value
+        self.sweep = sweep
+        self.parts = [FrameGraph(first, inputs, shared)]
+        shared = shared or self.parts[0]
+        while not done:
+            sads = sads_like(self.parts[-1].outputs[0], R, m)
+            self.parts.append(FrameGraph(then, (sads,), shared))
+
+    def replay(self, *inputs):
+        out = self.parts[0].replay(*inputs)
+        for part in self.parts[1:]:
+            out = part.replay(self.sweep(*out))
+        return out
 
 
 def _combine32(plane16: torch.Tensor, blocks32: torch.Tensor, m: int,

@@ -26,7 +26,7 @@ from homerhevc_tpu_torch.config import EncoderConfig
 from homerhevc_tpu_torch.hevc.headers import ParamSets
 from homerhevc_tpu_torch.hevc.syntax import FrameDesc
 from homerhevc_tpu_torch.utils.profiler import PROFILER
-from homerhevc_tpu_torch.device import resolve_device
+from homerhevc_tpu_torch.device import FrameGraph, resolve_device
 from homerhevc_tpu_torch.ops import intra as dip
 from homerhevc_tpu_torch.ops.deblock import (deblock_chroma_uniform,
                                              deblock_luma_uniform)
@@ -273,43 +273,6 @@ class WireFrameEncoder:
                                   else [qp_map])[0]
 
 
-class _FrameGraph:
-    """One CUDA graph of a frame program, captured over static copies of
-    its inputs (the packed batch, the frame QPs, the QP maps where given).
-    replay() copies a batch's inputs in, replays the graph and returns
-    copies of its outputs, enqueued on the same stream: every replay
-    writes the graph's own buffers, and a batch's outputs are read after
-    the next batch is dispatched (the pipeline's background fetch,
-    reconstructions kept as DevicePlanes).
-
-    `shared`, an earlier graph of the same encoder, lends this one its
-    memory pool and capture stream: replays run one at a time on the
-    card's current stream and their outputs are copied at once, so one
-    graph's scratch may hold another's outputs."""
-
-    def __init__(self, program, inputs, shared=None):
-        self.device = inputs[0].device
-        self.inputs = [torch.empty_like(t) for t in inputs]
-        self.graph = torch.cuda.CUDAGraph()
-        self.stream = (shared.stream if shared
-                       else torch.cuda.Stream(self.device))
-        # on the inputs' card, whichever card is current (ops on its
-        # tensors go to its own current stream: captured there, or the
-        # graph is empty); thread_local: only this thread's calls are
-        # checked while it captures (the pipeline's fetch thread copies)
-        with torch.cuda.device(self.device), torch.cuda.graph(
-                self.graph, pool=shared.graph.pool() if shared else None,
-                stream=self.stream, capture_error_mode="thread_local"):
-            self.outputs = program(*self.inputs)
-
-    def replay(self, *inputs):
-        with torch.cuda.device(self.device):
-            for dst, src in zip(self.inputs, inputs):
-                dst.copy_(src)
-            self.graph.replay()
-            return tuple(t.clone() for t in self.outputs)
-
-
 def _sh1(a: torch.Tensor) -> torch.Tensor:
     """Shift along the slot axis (dim 1): out[:, s] = a[:, s-1], 0 at s=0."""
     return torch.cat([torch.zeros_like(a[:, :1]), a[:, :-1]], dim=1)
@@ -341,7 +304,7 @@ class TorchIntraEncoder(WireFrameEncoder):
         self._flat_valid = flat[valid]             # block index per slot
         self._slot_valid = torch.nonzero(valid).reshape(-1)
         # by batch shape (_launch): None once dispatched, then its graph
-        self._graphs: dict[tuple[int, int], _FrameGraph | None] = {}
+        self._graphs: dict[tuple[int, int], FrameGraph | None] = {}
 
     # -- helpers -----------------------------------------------------------
 
@@ -553,8 +516,8 @@ class TorchIntraEncoder(WireFrameEncoder):
         if self._graphs[key] is None:
             PROFILER.count("intra.graph_captures")
             shared = next((g for g in self._graphs.values() if g), None)
-            self._graphs[key] = _FrameGraph(super()._launch,
-                                            (handle, *args), shared)
+            self._graphs[key] = FrameGraph(super()._launch,
+                                           (handle, *args), shared)
         else:
             PROFILER.count("intra.graph_replays")
         return self._graphs[key].replay(handle, *args)

@@ -137,8 +137,12 @@ def _as_batch(plane):
 
 
 def _per_frame(v, lead, device) -> torch.Tensor:
-    """Per-frame int32 vector (F,) from a scalar or a leading-shape QP."""
-    t = torch.as_tensor(v, dtype=torch.int32, device=device)
+    """Per-frame int32 vector (F,) from a scalar or a leading-shape QP (an
+    int is filled in on the device, not uploaded: a CUDA graph may
+    capture the call)."""
+    t = (torch.full((), v, dtype=torch.int32, device=device)
+         if isinstance(v, int)
+         else torch.as_tensor(v, dtype=torch.int32, device=device))
     F = int(np.prod(lead)) if lead else 1
     return t.expand(lead).reshape(F) if t.ndim else t.expand(F)
 
@@ -211,11 +215,11 @@ def deblock_chroma_bs(plane: torch.Tensor, bs2_v: torch.Tensor,
     bv = bs2_v.reshape((F,) + bs2_v.shape[-2:])
     bh = bs2_h.reshape((F,) + bs2_h.shape[-2:])
     ne_v = x.shape[2] // 8 - 1
-    ev = torch.as_tensor(2 * (np.arange(ne_v) + 1), device=x.device)
+    ev = torch.arange(2, 2 * ne_v + 1, 2, device=x.device)
     mv = bv.transpose(1, 2)[:, ev, :]                      # (F, E, h8)
     x = _chroma_pass(x, 8, tc, mv.repeat_interleave(4, dim=2))
     ne_h = x.shape[1] // 8 - 1
-    eh = torch.as_tensor(2 * (np.arange(ne_h) + 1), device=x.device)
+    eh = torch.arange(2, 2 * ne_h + 1, 2, device=x.device)
     mh = bh[:, eh, :]                                      # (F, E, w8)
     x = _chroma_pass(x.transpose(-1, -2), 8, tc,
                      mh.repeat_interleave(4, dim=2)).transpose(-1, -2)

@@ -167,9 +167,7 @@ def coarse_sweep_sads(sd: torch.Tensor, ref_pad: torch.Tensor, R: int,
         raise ValueError(f"the CUDA sweep takes m a multiple of 8 and "
                          f"R <= 255, got m={m} R={R}")
     lib = build()
-    side = 2 * R + 1
-    out = torch.empty((side * side, sd.shape[0] // m, sd.shape[1] // m),
-                      dtype=torch.int32, device=sd.device)
+    out = sads_like(sd, R, m)
     if sd.dtype == torch.uint8:
         launch(lib, sd, ref_pad, out, R, m)
         count_launch("coarse_sweep_sads")
@@ -178,6 +176,14 @@ def coarse_sweep_sads(sd: torch.Tensor, ref_pad: torch.Tensor, R: int,
     launch(lib, clamped, ref_pad, out, R, m, excess)
     count_launch("coarse_sweep_sads_wide")
     return out
+
+
+def sads_like(sd: torch.Tensor, R: int, m: int) -> torch.Tensor:
+    """An empty (side^2, gh, gw) int32 tensor on sd's device: the shape of
+    the sweep of sd at radius R over m x m blocks."""
+    side = 2 * R + 1
+    return torch.empty((side * side, sd.shape[0] // m, sd.shape[1] // m),
+                       dtype=torch.int32, device=sd.device)
 
 
 def wide_parts(sd: torch.Tensor, m: int):

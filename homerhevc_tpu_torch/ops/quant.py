@@ -74,7 +74,13 @@ def _qc6_scan(size: int, is_intra: bool, scaling_lists: bool, scan_idx: int,
 
 def _qp_split(qp, like: torch.Tensor):
     """(per, rem) of the QP: per as int32 shaped to broadcast over
-    (..., N, N), rem as an int64 index shaped like the block dims."""
+    (..., N, N), rem as an int64 index shaped like the block dims. An int
+    QP gives a 0-d per filled in on the device and an int rem: nothing is
+    uploaded and no index waits for the card, so a CUDA graph may
+    capture the call."""
+    if isinstance(qp, int):
+        return (torch.full((), qp // 6, dtype=torch.int32,
+                           device=like.device), qp % 6)
     q = torch.as_tensor(qp, dtype=torch.int32, device=like.device)
     per = torch.div(q, 6, rounding_mode="floor")
     return per.reshape(q.shape + (1, 1)) if q.ndim else per, (q % 6).long()

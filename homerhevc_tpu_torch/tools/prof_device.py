@@ -11,7 +11,9 @@ with the host clock. Probes, each on one random frame against a random
 reference:
   - me: TorchInterEncoder._hier_me alone (the hierarchical full-pel
     search, the coarse sweep kernel included);
-  - impl: the whole P program (TorchInterEncoder.dispatch);
+  - impl: the whole P program (TorchInterEncoder.dispatch; on the card
+    replayed from its CUDA graphs: an extra eager call comes first, so
+    the warm-up call captures);
   - fetch: dispatch and fetch (the wire download and the host syntax);
   - decide: the intra CU-tree decision pass (TorchIntraTreeEncoder.decide,
     its result read back);
@@ -104,8 +106,10 @@ def main(argv=None):
         lam16 = int(T.LAMBDA_ME_X16_TAB[32])
         ry32 = ref[0].to(torch.int32)
         # the source stays uint8: _hier_me takes uint8 or int16 planes
-        report("hier_me", lambda: enc._hier_me(src[0], ry32, lam16))
+        report("hier_me",
+               lambda: enc._eager(enc._hier_me(src[0], ry32, lam16)))
     if "impl" in probes:
+        enc.dispatch(src, ref, 1000.0, qp=32)
         report("impl_p", lambda: enc.dispatch(src, ref, 1000.0, qp=32))
     if "fetch" in probes:
         report("dispatch_fetch",

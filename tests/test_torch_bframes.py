@@ -110,17 +110,17 @@ def test_hier_me_on_a_wide_target_matches_jax():
     assert tgt.min() < 0 and tgt.max() > 255
     want = jax_enc._hier_me(jnp.asarray(tgt, jnp.int32),
                             jnp.asarray(ref), 300)
-    got = enc._hier_me(torch.from_numpy(tgt.astype(np.int16)),
-                       torch.from_numpy(ref), 300)
+    got = enc._eager(enc._hier_me(torch.from_numpy(tgt.astype(np.int16)),
+                                  torch.from_numpy(ref), 300))
     for a, b in zip(want[:2], got[:2]):               # mvs and the prior
         assert np.array_equal(np.asarray(a), b.numpy())
-    wrapped = enc._hier_me(
+    wrapped = enc._eager(enc._hier_me(
         torch.from_numpy(tgt.astype(np.uint8).astype(np.int16)),
-        torch.from_numpy(ref), 300)
+        torch.from_numpy(ref), 300))
     assert not np.array_equal(wrapped[0].numpy(), got[0].numpy())
     with pytest.raises(AssertionError):               # no int32 planes
-        enc._hier_me(torch.from_numpy(tgt.astype(np.int32)),
-                     torch.from_numpy(ref), 300)
+        enc._eager(enc._hier_me(torch.from_numpy(tgt.astype(np.int32)),
+                                torch.from_numpy(ref), 300))
 
 
 def _mc_inputs(seed, n, pad, chroma=False):

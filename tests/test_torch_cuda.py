@@ -8,7 +8,9 @@ CLI, an IPPP stream whose I frame takes the host programs, a
 three-reference stream whose later frames take the host P programs, an
 IBP stream with per-CTB QP maps, the mesh's slots) and the ops they add
 on the card against the same code on the CPU, the intra program's CUDA
-graph replays against its eager dispatches, the sweep's launch count
+graph replays against its eager dispatches, the P and B programs' graph
+replays (split at the sweep) against eager dispatches and the CPU, the
+sweep's launch count
 under four slot threads,
 and the port's parser on a stream coded on the card. They
 skip here with a reason. This file imports no jax, so on the card's machine it runs
@@ -441,6 +443,107 @@ def test_intra_graphs_of_two_batch_sizes_share_a_pool(card):
     assert (counters["intra.eager"], counters["intra.graph_captures"],
             counters["intra.graph_replays"]) == (2, 2, 4)
     assert enc._graphs[(1, 1)].graph.pool() == enc._graphs[(2, 1)].graph.pool()
+
+
+@pytest.mark.parametrize("program", ["p", "p_tree", "b"])
+def test_inter_graph_replays_match_eager_and_cpu(card, program, monkeypatch):
+    """The inter programs from their CUDA graphs split at the sweep: P at
+    128x64 CU16 (deblocking, SAO) over QPs 32 x 5, 30 x 3, then 28, 29 and
+    31 twice each; the CTU-64 P program with the FAR level and
+    intra-in-P; the B program at CTU 32 (dispatch_b, search 24), 4
+    dispatches each at QP 32. Each dispatch codes another frame; its
+    seven outputs, read after the last dispatch ran, equal a fresh card
+    encoder's eager dispatch and the CPU's bit for bit. The counters read
+    one capture and the rest replays per key, a fifth key past the cap
+    of four graphs stays eager, and the graphs share one pool. Every
+    dispatch calls the module's coarse_sweep_sads once (B: three times,
+    one of them wide) and launches the kernel as often."""
+    from homerhevc_tpu_torch.engine import inter_encoder
+    from homerhevc_tpu_torch.utils.profiler import PROFILER
+    bi, tree = program == "b", program == "p_tree"
+    w, h = (128, 128) if tree else (128, 96) if bi else (128, 64)
+    qps = ([32] * 5 + [30] * 3 + [28, 28, 29, 29, 31, 31]
+           if program == "p" else [32] * 4)
+    cfg = EncoderConfig(width=w, height=h, qp=32, gop_size=2 if bi else 1,
+                        intra_period=0, sao=True, deblocking=True,
+                        sign_hiding=True, cu_size=64 if tree else 32 if bi
+                        else 16, intra_rdo=tree or bi, me_range=64 if tree
+                        else 32, intra_in_p=tree)
+    ps = ParamSets.from_config(cfg)
+    rng = np.random.RandomState(29)
+    y, u, v = _frame(rng, w, h)
+    frames = [(np.roll(y, 2 * t, 1), np.roll(u, t, 1), np.roll(v, t, 0))
+              for t in range(len(qps) + 2)]
+    calls = []
+    sweep = inter_encoder.coarse_sweep_sads
+
+    def counted(*a):
+        calls.append(a[0].dtype)
+        return sweep(*a)
+    monkeypatch.setattr(inter_encoder, "coarse_sweep_sads", counted)
+
+    def dispatch(enc, k, dev):
+        refs = [reference_from_numpy(frames[k + j], dev) for j in (0, 2)]
+        if bi:
+            return enc.dispatch_b(frames[k + 1], *refs, 700.0, qps[k])
+        return enc.dispatch(frames[k + 1], refs[0], 700.0, qps[k])
+
+    def encoder(dev):
+        return TorchInterEncoder(ps, cfg, search=24 if bi else 16,
+                                 device=dev)
+    enc = encoder(card)
+    got, per = [], []
+    try:
+        with PROFILER.enabled():
+            PROFILER.reset()
+            for k in range(len(qps)):
+                before = dict(LAUNCHES)
+                del calls[:]
+                got.append(dispatch(enc, k, card))
+                per.append((list(calls), {n: LAUNCHES[n] - before[n]
+                                          for n in LAUNCHES}))
+            counters = PROFILER.counters
+    finally:
+        PROFILER.reset()
+    want = {"eager": [dispatch(encoder(card), k, card)
+                      for k in range(len(qps))],
+            "cpu": [dispatch(encoder("cpu"), k, "cpu")
+                    for k in range(len(qps))]}
+    for name, outs in want.items():
+        for k, (g, e) in enumerate(zip(got, outs)):
+            assert len(g) == len(e) == 7
+            for a, b in zip(g, e):
+                assert a.dtype == b.dtype and torch.equal(a, b.to(card)), \
+                    (name, k)
+    sweeps = ([torch.uint8, torch.uint8, torch.int16] if bi
+              else [torch.uint8])
+    launches = {"coarse_sweep_sads": 2 if bi else 1,
+                "coarse_sweep_sads_wide": int(bi)}
+    assert per == [(sweeps, launches)] * len(qps)
+    assert (counters["inter.eager"], counters["inter.graph_captures"],
+            counters["inter.graph_replays"]) == \
+        ((6, 4, 4) if program == "p" else (1, 1, 2))
+    assert len({g.parts[0].graph.pool() for g in enc._graphs.values()}) == 1
+    assert all(len(g.parts) == len(sweeps) + 1
+               for g in enc._graphs.values())
+
+
+def test_frame_graph_holds_the_collector_off_while_it_captures(card):
+    """FrameGraph captures with the garbage collector off (a dead cycle
+    holding a dropped encoder's graph, collected mid-capture, would end
+    the capture) and turns it back on; the graph replays."""
+    import gc
+    from homerhevc_tpu_torch.device import FrameGraph
+    seen = []
+
+    def program(x):
+        seen.append(gc.isenabled())
+        return (x * 2,)
+    assert gc.isenabled()
+    graph = FrameGraph(program, (torch.ones(4, device=card),))
+    assert seen == [False] and gc.isenabled()
+    x = torch.arange(4.0, device=card)
+    assert torch.equal(graph.replay(x)[0], 2 * x)
 
 
 @pytest.mark.parametrize("gop", [0, 1])
